@@ -1,0 +1,77 @@
+"""Problem-select CLI, the port of ``multiphase_lbm_tpu/runners/coolbm.py``:
+
+    python -m multiphase_lbm_tpu_torch.runners.coolbm <problem> \
+        [--config config.txt] [--outdir out] [--steps N] [--f32] \
+        [--device cuda|cpu]
+
+Ported problems: laplace2D_sc, contactAngle2D.  The JAX CLI's other
+problems are named so that asking for one says which ROADMAP.md item
+brings it.  On a CUDA device the solver runs the fused CUDA kernel; on the
+CPU, the plain PyTorch path.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+from . import apps
+
+PROBLEMS = {
+    "laplace2D_sc": (apps.run_sc_laplace2d, "sc_Laplace2D.txt"),
+    "contactAngle2D": (apps.run_sc_contact_angle, "sc_contactAngle2D.txt"),
+}
+
+# problem of the JAX CLI -> the ROADMAP.md item that ports it
+NOT_PORTED = {
+    "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
+    "RayleighTaylor2D_sc": "Queue A item 7 (models/shan_chen_rt.py)",
+    "Young_Laplace2D": "Queue A item 6 (models/fakhari.py)",
+    "rayleighTaylor2D": "Queue A item 5 (models/hcz.py, 2D)",
+    "twoLayeredFlow2D": "Queue A item 5 (models/hcz.py, 2D)",
+    "laplace3D": "Queue A item 8 (models/hcz.py, 3D)",
+    "PulsatileBloodFlow2D": "Queue A item 9 (models/pulsatile.py)",
+    "combustion": "Queue A item 10 (models/combustion.py)",
+}
+
+CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="coolbm")
+    ap.add_argument("problem", choices=list(PROBLEMS) + list(NOT_PORTED))
+    ap.add_argument("--config", default=None,
+                    help="reference-format config_*.txt (defaults to the "
+                         "repo's configs/ file for the problem)")
+    ap.add_argument("--outdir", default="out")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="override the step count from the config")
+    ap.add_argument("--f32", action="store_true",
+                    help="run in float32 (the GPU production dtype)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda when a GPU is "
+                         "visible, else cpu)")
+    args = ap.parse_args(argv)
+
+    if args.problem in NOT_PORTED:
+        raise NotImplementedError(
+            f"{args.problem} is not yet ported to multiphase_lbm_tpu_torch; "
+            f"see ROADMAP.md {NOT_PORTED[args.problem]}")
+    device = torch.device(args.device or
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    dtype = torch.float32 if args.f32 else torch.float64
+    fn, config_name = PROBLEMS[args.problem]
+    cfg = args.config
+    if cfg is None:
+        cand = CONFIG_DIR / config_name
+        if not cand.exists():
+            ap.error(f"--config required for {args.problem}")
+        cfg = str(cand)
+    fn(cfg, args.outdir, dtype=dtype, max_steps=args.steps, device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

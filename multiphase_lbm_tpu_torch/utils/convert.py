@@ -1,0 +1,26 @@
+"""Carry parameters and state from the JAX package to the port.
+
+Both sides exchange plain Python and numpy values, so nothing here imports
+jax: a caller holding a JAX ``SCParams`` passes ``dataclasses.asdict`` of
+it, and JAX arrays as ``np.asarray`` copies.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.shan_chen import SCParams
+
+
+def params_from_jax(d: dict) -> SCParams:
+    """The port's ``SCParams`` from ``dataclasses.asdict`` of the JAX one
+    (the two dataclasses have the same fields; an unknown key raises)."""
+    return SCParams(**d)
+
+
+def state_from_numpy(f_np, fluid_np, device, dtype=torch.float64):
+    """``(f, fluid)`` tensors on ``device``: populations ``(9, ny, nx)`` in
+    ``dtype`` and the bool fluid mask ``(ny, nx)``."""
+    f = torch.as_tensor(np.array(f_np), dtype=dtype, device=device)
+    fluid = torch.as_tensor(np.array(fluid_np, dtype=bool), device=device)
+    return f, fluid

@@ -1,0 +1,160 @@
+"""I/O, driver and CLI of the PyTorch port against the JAX package, on the
+CPU.
+
+The port's ``coolbm`` and the JAX ``coolbm`` run the same shrunken config
+at float64; they must write the same files, with the same VTK headers and
+field lists, and fields equal to 1e-6 relative (the VTK text keeps 6
+significant digits; atol 1e-12 covers values that are zero up to rounding).
+"""
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from multiphase_lbm_tpu.io import config as jconfig
+from multiphase_lbm_tpu.io import vtk as jvtk
+from multiphase_lbm_tpu.runners import coolbm as jcoolbm
+from multiphase_lbm_tpu_torch.io import config as tconfig
+from multiphase_lbm_tpu_torch.io import vtk as tvtk
+from multiphase_lbm_tpu_torch.io.loggers import DatLogger, MlupsClock
+from multiphase_lbm_tpu_torch.runners import coolbm as tcoolbm
+from multiphase_lbm_tpu_torch.runners.common import Driver, next_chunk
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
+
+
+def _shrunk_config(src, dst, **overrides):
+    lines = []
+    for line in open(src):
+        key = line.split()[0] if line.strip() and not line.startswith("#") else None
+        if key in overrides:
+            line = f"{key}    {overrides.pop(key)}\n"
+        lines.append(line)
+    lines += [f"{k}    {v}\n" for k, v in overrides.items()]
+    Path(dst).write_text("".join(lines))
+
+
+def _vtk_header(path):
+    return Path(path).read_text().split("POINT_DATA")[0]
+
+
+def _vtk_field_list(path):
+    return [line.split()[:2] for line in Path(path).read_text().splitlines()
+            if line.startswith(("SCALARS", "VECTORS"))]
+
+
+CLI_CASES = {
+    "laplace2D_sc": ("sc_Laplace2D.txt",
+                     dict(N=40, out_freq=20, vtk_freq=20), 40),
+    "contactAngle2D": ("sc_contactAngle2D.txt",
+                       dict(N=20, RR=8, tau=0.8, out_freq=10, vtk_freq=10), 20),
+}
+
+
+@pytest.mark.parametrize("problem", sorted(CLI_CASES))
+def test_cli_matches_jax_cli(problem, tmp_path):
+    name, overrides, steps = CLI_CASES[problem]
+    cfg = tmp_path / "config.txt"
+    _shrunk_config(CONFIG_DIR / name, cfg, **overrides)
+    jout, tout = tmp_path / "jax", tmp_path / "torch"
+    assert jcoolbm.main([problem, "--config", str(cfg), "--outdir", str(jout),
+                         "--steps", str(steps)]) == 0
+    assert tcoolbm.main([problem, "--config", str(cfg), "--outdir", str(tout),
+                         "--steps", str(steps), "--device", "cpu"]) == 0
+    names = sorted(os.listdir(jout))
+    assert sorted(os.listdir(tout)) == names
+    assert sum(n.startswith("sol_") for n in names) == 2
+    for n in names:
+        if n.endswith(".vtk"):
+            assert _vtk_header(tout / n) == _vtk_header(jout / n)
+            assert _vtk_field_list(tout / n) == _vtk_field_list(jout / n)
+            tf, jf = tvtk.read_vtk_fields(tout / n), jvtk.read_vtk_fields(jout / n)
+            assert tf.keys() == jf.keys()
+            for key in jf:
+                np.testing.assert_allclose(tf[key], jf[key], rtol=1e-6,
+                                           atol=1e-12, err_msg=f"{n}:{key}")
+        else:
+            np.testing.assert_allclose(np.loadtxt(tout / n), np.loadtxt(jout / n),
+                                       rtol=1e-9, err_msg=n)
+
+
+def test_cli_names_the_roadmap_item_for_unported_problems():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcoolbm.main(["laplace3D", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CONFIG_DIR.glob("*.txt")))
+def test_config_parse_matches_jax(name):
+    text = (CONFIG_DIR / name).read_text()
+    assert tconfig.parse_config_text(text) == jconfig.parse_config_text(text)
+
+
+def test_lb_parameters_match_jax():
+    assert tconfig.lb_parameters(0.01, 100, 6.0) == jconfig.lb_parameters(0.01, 100, 6.0)
+    assert tconfig.omega_from_tau(0.8) == jconfig.omega_from_tau(0.8)
+
+
+def _fields(ny=6, nx=8):
+    rng = np.random.default_rng(7)
+    rho = rng.uniform(0.0, 2.0, (ny, nx))
+    u = rng.standard_normal((2, ny, nx)) * 1e-3
+    flag = (rho > 1.0).astype(np.int32)
+    return rho, u, flag
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_vtk_writer_bytes_equal_jax(dtype, tmp_path):
+    rho, u, flag = _fields()
+    ny, nx = rho.shape
+    out = {}
+    for tag, mod in (("jax", jvtk), ("torch", tvtk)):
+        w = mod.VtkWriter(nx, ny, spacing=0.01, iteration=27)
+        w.scalar("Density", rho.astype(dtype)).vector("Force", u.astype(dtype))
+        w.vector("Velocity3", np.concatenate([u, u[:1]]).astype(dtype))
+        w.scalar("Flag", flag, as_int=True)
+        path = tmp_path / f"{tag}_{mod.sol_filename(27)}"
+        w.write(path)
+        out[tag] = path.read_bytes()
+    assert out["torch"] == out["jax"]
+
+
+def test_driver_async_vtk_matches_sync_bytes(tmp_path):
+    """Async dumps must produce byte-identical files to the synchronous
+    path, be fully on disk after finish(), and surface worker errors
+    there."""
+    rho, u, flag = _fields(12, 16)
+    ny, nx = rho.shape
+    fields = dict(scalars=[("Density", torch.as_tensor(rho, dtype=torch.float32))],
+                  vectors=[("velocity", torch.as_tensor(u))],
+                  int_scalars=[("Flag", torch.as_tensor(flag))])
+    d_sync = Driver(tmp_path / "sync", nx * ny, vtk_freq=1, async_io=False)
+    d_async = Driver(tmp_path / "async", nx * ny, vtk_freq=1)
+    for it in (0, 27, 54, 81):          # > the in-flight bound of 2
+        d_sync.write_vtk(it, nx, ny, **fields)
+        d_async.write_vtk(it, nx, ny, **fields)
+    d_sync.finish()
+    d_async.finish()
+    for it in (0, 27, 54, 81):
+        a = (tmp_path / "async" / tvtk.sol_filename(it)).read_bytes()
+        s = (tmp_path / "sync" / tvtk.sol_filename(it)).read_bytes()
+        assert a == s
+
+    d_bad = Driver(tmp_path / "bad", nx * ny, vtk_freq=1)
+    d_bad.outdir = tmp_path / "bad" / "missing-subdir"   # unwritable target
+    d_bad.write_vtk(0, nx, ny, **fields)
+    with pytest.raises(OSError):
+        d_bad.finish()
+
+
+def test_next_chunk_and_loggers(tmp_path):
+    assert next_chunk(0, 11, 3, 5) == 3
+    assert next_chunk(3, 11, 3, 5) == 2
+    assert next_chunk(10, 11, 3, 5) == 1
+    with DatLogger(tmp_path / "x.dat") as log:
+        log.log(100, 2.5e-8)
+    assert (tmp_path / "x.dat").read_text() == "100 2.5e-08\n"
+    clock = MlupsClock(nelem=1000)
+    clock.tick(10)
+    assert clock.mlups > 0 and "MLUPS" in clock.report()
