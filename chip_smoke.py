@@ -1,30 +1,56 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernel,
-holds it against the plain PyTorch path, drives the main path (the 2048²
-SC-MRT float32 headline and the laplace2D_sc CLI) and checks the physics.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA
+kernels, holds each against the plain PyTorch path, drives the main path of
+each model family and checks the physics.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device   — a CUDA device is required; prints the card's name and power
                 limit as nvidia-smi reports them.
-  2. build    — nvcc builds csrc/*.cu; prints the seconds and ptxas report.
-  3. kernel vs plain on the card, ω = 1.25 (τ = 0.8) so the rank-2 MRT term
-     is live: {periodic 256², walled 256×128 with ρ_w = 0.2 and the droplet
-     on the wall} × {BGK, MRT}, float32 over 5 steps (rtol 2e-5, atol 2e-6:
-     sum order and FMA contraction differ from the plain path) and float64
-     over 20 steps (atol 1e-12); and 2048² periodic MRT float32, 5 steps.
-  4. main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
+  2. build    — nvcc builds csrc/*.cu, one process per source, all started
+                together; prints the seconds and the ptxas report (registers
+                and spills of every kernel).
+  3. kernel vs plain on the card:
+     sc_step — ω = 1.25 (τ = 0.8) so the rank-2 MRT term is live:
+       {periodic 256², walled 256×128 with ρ_w = 0.2 and the droplet on the
+       wall} × {BGK, MRT}, float32 over 5 steps (rtol 2e-5, atol 2e-6: sum
+       order and FMA contraction differ from the plain path) and float64
+       over 20 steps (atol 1e-12); and 2048² periodic MRT float32, 5 steps.
+     hcz_step — RTI channel 256×1026 with gravity at ω = 1.25 and at the
+       config's ω = 1.96, layered channel 128×128 with Gx_const at
+       ω = 1.25: float32 over 5 steps (rtol 3e-5, atol 3e-6) and float64
+       over 20 steps (atol 1e-12); and RTI-2048 (2048×8194) float32, 5 steps.
+     hcz3d_step — 64³ droplet at ω = 1.2, float32 over 5 steps (rtol 5e-5,
+       atol 5e-6) and float64 over 20 steps (atol 1e-12); and 128³ float32,
+       3 steps.
+  4. SC main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
      periodic, through the kernel (slope protocol), beside the plain path
      at the same size; state finite, mass drift < 1e-4 (summed in float64),
      droplet ρ ≈ 0.265 inside and ≈ 0.038 far away (±10%).
-  5. CLI      — coolbm laplace2D_sc --f32 --steps 800 with the repo config
+  5. SC CLI   — coolbm laplace2D_sc --f32 --steps 800 with the repo config
      writes sol_0000000.vtk, sol_0000400.vtk, mass.dat, energy.dat and its
      MLUPS line, through the kernel.
-Then one JSON line per kernel of the path (launches counted over phases
-4-5 only) and, last, {"ok": true, "device": {...}}.
+  6. RTI main path — bench --model rti: RTI-2048 float32 through hcz_step
+     (slope 50/150 steps) beside the plain path (2/6 steps); state finite,
+     phase-mass drift Σf < 1e-4 (summed in float64).
+  7. literature gate — validation.rti_regression to t = 2 at N = 256
+     (12,800 steps through hcz_step): position deviations from the
+     published curves < 0.15, velocity deviations < 0.25.
+  8. RTI CLI  — coolbm rayleighTaylor2D --f32 --steps 6400 (config N = 256)
+     writes sol_0000000.vtk, sol_0003200.vtk, energy.dat,
+     spike_bubble_position.dat, spike_bubble_velocity.dat and its MLUPS
+     line, through hcz_step.
+  9. 3D main path — bench --model hcz3d: 128³ float32 through hcz3d_step
+     (slope 50/150) beside the plain path (2/6); then coolbm laplace3D
+     --f32 --steps 200 (config N = 100) writes its files through
+     hcz3d_step.
+Each kernel's launch count is set to 0 just before its own main path
+(phases 4-5, 6-8, 9) and read just after.  Then one JSON line with every
+kernel of the paths and, last, {"ok": true, "device": {...}}.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -37,6 +63,31 @@ import torch
 
 F32_TOL = dict(rtol=2e-5, atol=2e-6)
 F64_TOL = dict(rtol=0.0, atol=1e-12)
+HCZ_F32_TOL = dict(rtol=3e-5, atol=3e-6)
+HCZ3D_F32_TOL = dict(rtol=5e-5, atol=5e-6)
+
+# H100 SXM data sheet: 3.35 TB/s of device memory, 67 TFLOP/s float32
+# outside the tensor cores (the kernels use none).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# Per cell and step in float32: the bytes the step must move (each input
+# read once, each output written once) and the floating-point operations it
+# must do (each field formed once per cell), counted from the arithmetic of
+# the step: sc_step reads and writes 9 populations (no mask when periodic);
+# hcz_step reads and writes 2 × 9 populations and reads the mask; hcz3d_step
+# reads and writes 2 × 19 populations.
+WORK_PER_CELL = {"sc_step": (72, 200), "hcz_step": (148, 600),
+                 "hcz3d_step": (304, 1300)}
+
+
+def bound(name, cells):
+    """(bound_ms, bound_by): the least time the card could take for one
+    step on ``cells`` cells, the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    nbytes, flops = WORK_PER_CELL[name]
+    t_bytes = cells * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def say(msg):
@@ -49,11 +100,44 @@ def check(cond, msg):
 
 
 def max_err_within(out, ref, rtol, atol):
-    """(max |out − ref|, whether |out − ref| <= atol + rtol·|ref| everywhere)."""
-    d = (out.double() - ref.double()).abs()
-    ok = bool(torch.isfinite(out).all()) and bool(
-        (d <= atol + rtol * ref.double().abs()).all())
-    return float(d.max()), ok
+    """(max |out − ref|, whether |out − ref| <= atol + rtol·|ref| everywhere)
+    of a tensor or of a tuple of tensors."""
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    err, ok = 0.0, True
+    for o, r in zip(out, ref):
+        d = (o.double() - r.double()).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool(torch.isfinite(o).all()) and bool(
+            (d <= atol + rtol * r.double().abs()).all())
+    return err, ok
+
+
+def compare(name, out, ref, tol, failures):
+    """Print one kernel-against-plain line; note a failure."""
+    torch.cuda.synchronize()
+    err, ok = max_err_within(out, ref, **tol)
+    say(f"[kernel vs plain] {name}: max abs err {err:.3e} "
+        f"(rtol {tol['rtol']}, atol {tol['atol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name)
+    return err
+
+
+def run_cli(coolbm, argv, expected):
+    """coolbm ``argv`` into a temporary directory: returns its output after
+    checking the exit code, the MLUPS line and the ``expected`` files."""
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = coolbm.main([*argv, "--outdir", tmp, "--device", "cuda"])
+        say(buf.getvalue().strip())
+        check(rc == 0, f"coolbm {argv} returned {rc}")
+        produced = sorted(os.listdir(tmp))
+        say(f"[cli] {argv[0]} wrote {produced}")
+        for name in expected:
+            check(name in produced, f"{name} not in {produced}")
+        check("MLUPS" in buf.getvalue(), f"no MLUPS line from {argv}")
 
 
 def main():
@@ -73,9 +157,12 @@ def main():
     dev = torch.device("cuda")
 
     from multiphase_lbm_tpu_torch import bench
+    from multiphase_lbm_tpu_torch.models import hcz
     from multiphase_lbm_tpu_torch.models import shan_chen as sc
-    from multiphase_lbm_tpu_torch.ops import _build, sc_fused
+    from multiphase_lbm_tpu_torch.ops import _build, hcz3d_fused, hcz_fused
+    from multiphase_lbm_tpu_torch.ops import sc_fused
     from multiphase_lbm_tpu_torch.runners import coolbm
+    from multiphase_lbm_tpu_torch.validation import rti_regression
 
     # ---- 2. build ----
     _build.build()
@@ -85,7 +172,7 @@ def main():
     if _build.build_log:
         say(_build.build_log.strip())
 
-    # ---- 3. kernel against the plain version ----
+    # ---- 3. kernels against their plain versions ----
     failures = []
     for geometry in ("periodic", "walls"):
         nx, ny = (256, 256) if geometry == "periodic" else (256, 128)
@@ -106,17 +193,11 @@ def main():
                 out = sc_fused.run_fused(f, fluid.to(torch.float32), p, steps,
                                          periodic=geometry == "periodic")
                 ref = sc.run(f, fluid, p, steps)
-                torch.cuda.synchronize()
-                err, ok = max_err_within(out, ref, **tol)
-                name = (f"{geometry} {nx}x{ny} {collision} omega=1.25 "
-                        f"{str(dtype)[6:]} {steps} steps")
-                say(f"[kernel vs plain] {name}: max abs err {err:.3e} "
-                    f"(rtol {tol['rtol']}, atol {tol['atol']}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(name)
+                compare(f"sc_step {geometry} {nx}x{ny} {collision} "
+                        f"omega=1.25 {str(dtype)[6:]} {steps} steps",
+                        out, ref, tol, failures)
     n = 2048
-    err_2048 = 0.0
+    err_sc = 0.0
     for omega in (1.0, 1.25):
         p = sc.SCParams(collision="mrt", omega=omega)
         f = sc.init_droplet(n, n, p, radius=n / 8.0, dtype=torch.float32,
@@ -125,19 +206,59 @@ def main():
         out = sc_fused.run_fused(f, fluid.to(torch.float32), p, 5,
                                  periodic=True)
         ref = sc.run(f, fluid, p, 5)
-        torch.cuda.synchronize()
-        err, ok = max_err_within(out, ref, **F32_TOL)
-        err_2048 = max(err_2048, err)
-        name = f"periodic {n}x{n} mrt omega={omega} float32 5 steps"
-        say(f"[kernel vs plain] {name}: max abs err {err:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(name)
+        err_sc = max(err_sc, compare(
+            f"sc_step periodic {n}x{n} mrt omega={omega} float32 5 steps",
+            out, ref, F32_TOL, failures))
         del f, fluid, out, ref
+
+    def hcz_case(case, dtype, N=256):
+        if case == "layers":
+            p = hcz.HCZParams(omega=1.25, kappa=0.001, Gx_const=1e-8)
+            fluid = hcz.geometry_channel(128, 128, device=dev)
+            st = hcz.init_layers(128, 128, p, dtype=dtype, device=dev)
+            return p, hcz.apply_geometry(st, fluid), fluid
+        p, st, fluid = rti_regression.rti_state(N, dev, dtype)
+        if case == "rti omega=1.25":
+            p = dataclasses.replace(p, omega=1.25)
+        return p, st, fluid
+
+    for case in ("rti omega=1.25", "rti omega=1.96 (config)", "layers"):
+        for dtype, steps, tol in ((torch.float32, 5, HCZ_F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            p, st, fluid = hcz_case(case, dtype)
+            out = hcz_fused.run_fused(*st, fluid.to(torch.float32), p, steps)
+            ref = hcz.run(st, fluid, p, steps)
+            shape = "128x128" if case == "layers" else "256x1026"
+            compare(f"hcz_step {case} {shape} omega={p.omega:.4g} "
+                    f"{str(dtype)[6:]} {steps} steps", out, ref, tol, failures)
+    p, st, fluid = rti_regression.rti_state(2048, dev)
+    out = hcz_fused.run_fused(*st, fluid.to(torch.float32), p, 5)
+    ref = hcz.run(st, fluid, p, 5)
+    err_hcz = compare(f"hcz_step RTI-2048 2048x8194 omega={p.omega:.4g} "
+                      "float32 5 steps", out, ref, HCZ_F32_TOL, failures)
+    del st, fluid, out, ref
+
+    p3 = hcz.HCZParams(omega=1.2, kappa=5e-4)
+    for dtype, steps, tol in ((torch.float32, 5, HCZ3D_F32_TOL),
+                              (torch.float64, 20, F64_TOL)):
+        st = hcz.init_droplet_3d(64, 64, 64, p3, dtype=dtype, device=dev)
+        out = hcz3d_fused.run_fused_3d(*st, p3, steps)
+        ref = hcz.run(st, hcz.geometry_periodic_3d(64, 64, 64, device=dev), p3,
+                      steps, lattice=hcz.D3Q19, three_d=True)
+        compare(f"hcz3d_step droplet 64^3 omega=1.2 {str(dtype)[6:]} "
+                f"{steps} steps", out, ref, tol, failures)
+    st = hcz.init_droplet_3d(128, 128, 128, p3, dtype=torch.float32,
+                             device=dev)
+    out = hcz3d_fused.run_fused_3d(*st, p3, 3)
+    ref = hcz.run(st, hcz.geometry_periodic_3d(128, 128, 128, device=dev), p3,
+                  3, lattice=hcz.D3Q19, three_d=True)
+    err_hcz3d = compare("hcz3d_step droplet 128^3 omega=1.2 float32 3 steps",
+                        out, ref, HCZ3D_F32_TOL, failures)
+    del st, out, ref
     if failures:
         raise SystemExit(f"kernel disagrees with the plain path: {failures}")
 
-    # ---- 4. main path: the headline ----
+    # ---- 4. SC main path: the headline ----
     rec_plain, rd_plain, _ = bench.run(size=n, steps=10, steps2=30, plain=True)
     say(f"[bench plain] {json.dumps(rec_plain)}")
     check(rd_plain.valid, rec_plain)
@@ -165,32 +286,96 @@ def main():
         f"{rec_plain['value']:.1f} MLUPS at {n}x{n} MRT float32 on {card}")
     del out, rho, rd, f0
 
-    # ---- 5. CLI ----
-    with tempfile.TemporaryDirectory() as tmp:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = coolbm.main(["laplace2D_sc", "--f32", "--steps", "800",
-                              "--outdir", tmp, "--device", "cuda"])
-        say(buf.getvalue().strip())
-        check(rc == 0, f"coolbm returned {rc}")
-        produced = sorted(os.listdir(tmp))
-        say(f"[cli] wrote {produced}")
-        for name in ("sol_0000000.vtk", "sol_0000400.vtk", "mass.dat",
-                     "energy.dat"):
-            check(name in produced, f"{name} not in {produced}")
-        check("MLUPS" in buf.getvalue(), "no MLUPS line")
+    # ---- 5. SC CLI ----
+    run_cli(coolbm, ["laplace2D_sc", "--f32", "--steps", "800"],
+            ("sol_0000000.vtk", "sol_0000400.vtk", "mass.dat", "energy.dat"))
     check(sc_fused.LAUNCHES > bench_launches, "the CLI did not launch the kernel")
+    sc_launches = sc_fused.LAUNCHES
 
-    kernels = [{
-        "name": "sc_step",
-        "route": "cuda",
-        "source": "multiphase_lbm_tpu_torch/csrc/sc_step.cu",
-        "replaces": "multiphase_lbm_tpu/ops/pallas_sc.py:55",
-        "launches": sc_fused.LAUNCHES,
-        "max_abs_err": err_2048,
-        "ms": rec["ms_per_step"],
-        "plain_ms": rec_plain["ms_per_step"],
-    }]
+    # ---- 6. RTI main path: RTI-2048 ----
+    rec_rti_plain, rd, _ = bench.run(model="rti", steps=2, steps2=6,
+                                     plain=True)
+    say(f"[bench rti plain] {json.dumps(rec_rti_plain)}")
+    check(rd.valid, rec_rti_plain)
+    del rd
+    hcz_fused.LAUNCHES = 0             # count the RTI path's launches only
+    rec_rti, rd, st0 = bench.run(model="rti", steps=50, steps2=150)
+    say(f"[bench rti kernel] {json.dumps(rec_rti)}")
+    check(rd.valid, rec_rti)
+    check(hcz_fused.LAUNCHES > 0, "RTI-2048 did not launch the kernel")
+    check(all(bool(torch.isfinite(t).all()) for t in rd.out),
+          "non-finite RTI state")
+    m0 = float(st0[0].double().sum())
+    drift = abs(float(rd.out[0].double().sum()) - m0) / m0
+    say(f"[physics] RTI-2048 phase-mass drift {drift:.3e} (< 1e-4)")
+    check(drift < 1e-4, f"RTI phase-mass drift {drift}")
+    say(f"[main path] kernel {rec_rti['value']:.1f} MLUPS vs plain "
+        f"{rec_rti_plain['value']:.1f} MLUPS at RTI-2048 float32 on {card}")
+    del rd, st0
+
+    # ---- 7. literature gate: RTI at N = 256 to t = 2 ----
+    t0 = time.perf_counter()
+    times, spikes, bubbles = rti_regression.run_regression(t_end=2.0, N=256,
+                                                           device=dev)
+    secs = time.perf_counter() - t0
+    ds, db, dvs, dvb = rti_regression.deviations(times, spikes, bubbles, 256)
+    say(f"[literature] N=256 t=2 ({len(times)} samples, {secs:.2f} s): "
+        f"spike {ds:.4f}, bubble {db:.4f} (< 0.15); spike velocity "
+        f"{dvs:.4f}, bubble velocity {dvb:.4f} (< 0.25)")
+    check(ds < 0.15 and db < 0.15 and dvs < 0.25 and dvb < 0.25,
+          "RTI at N=256 departs from the published curves")
+
+    # ---- 8. RTI CLI ----
+    before_cli = hcz_fused.LAUNCHES
+    run_cli(coolbm, ["rayleighTaylor2D", "--f32", "--steps", "6400"],
+            ("sol_0000000.vtk", "sol_0003200.vtk", "energy.dat",
+             "spike_bubble_position.dat", "spike_bubble_velocity.dat"))
+    hcz_launches = hcz_fused.LAUNCHES
+    check(hcz_launches > before_cli, "the RTI CLI did not launch the kernel")
+
+    # ---- 9. 3D main path: the 128³ droplet and the laplace3D CLI ----
+    rec_3d_plain, rd, _ = bench.run(model="hcz3d", steps=2, steps2=6,
+                                    plain=True)
+    say(f"[bench hcz3d plain] {json.dumps(rec_3d_plain)}")
+    check(rd.valid, rec_3d_plain)
+    del rd
+    hcz3d_fused.LAUNCHES = 0           # count the 3D path's launches only
+    rec_3d, rd, st0 = bench.run(model="hcz3d", steps=50, steps2=150)
+    say(f"[bench hcz3d kernel] {json.dumps(rec_3d)}")
+    check(rd.valid, rec_3d)
+    check(all(bool(torch.isfinite(t).all()) for t in rd.out),
+          "non-finite 3D state")
+    m0 = float(st0[0].double().sum())
+    drift = abs(float(rd.out[0].double().sum()) - m0) / m0
+    say(f"[physics] 128^3 droplet phase-mass drift {drift:.3e} (< 1e-4)")
+    check(drift < 1e-4, f"3D phase-mass drift {drift}")
+    bench3d_launches = hcz3d_fused.LAUNCHES
+    check(bench3d_launches > 0, "the 3D bench did not launch the kernel")
+    del rd, st0
+    run_cli(coolbm, ["laplace3D", "--f32", "--steps", "200"],
+            ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"))
+    check(hcz3d_fused.LAUNCHES > bench3d_launches,
+          "the laplace3D CLI did not launch the kernel")
+
+    def entry(name, source, replaces, launches, err, rec_k, rec_p, cells):
+        bound_ms, bound_by = bound(name, cells)
+        return {"name": name, "route": "cuda",
+                "source": f"multiphase_lbm_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": rec_k["ms_per_step"],
+                "plain_ms": rec_p["ms_per_step"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    kernels = [
+        entry("sc_step", "sc_step.cu", "multiphase_lbm_tpu/ops/pallas_sc.py:55",
+              sc_launches, err_sc, rec, rec_plain, n * n),
+        entry("hcz_step", "hcz_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_hcz.py:42", hcz_launches, err_hcz,
+              rec_rti, rec_rti_plain, 2048 * 8194),
+        entry("hcz3d_step", "hcz3d_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
+              hcz3d_fused.LAUNCHES, err_hcz3d, rec_3d, rec_3d_plain, 128 ** 3),
+    ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

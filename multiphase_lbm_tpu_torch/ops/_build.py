@@ -4,9 +4,11 @@ Every ``csrc/*.cu`` file of the package is compiled for Hopper (``sm_90a``)
 into one shared library with a plain C interface,
 ``multiphase_lbm_tpu_torch/_build/libmlbm_kernels.so``, the first time a
 kernel is needed, and again only when a source is newer than the library.
-The library links no PyTorch headers, so a build takes seconds (a
-``torch.utils.cpp_extension`` build takes minutes).  Nothing here runs at
-import time: the CPU-only tests import every module of the package.
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects.  The library links no PyTorch
+headers, so a build takes seconds (a ``torch.utils.cpp_extension`` build
+takes minutes).  Nothing here runs at import time: the CPU-only tests
+import every module of the package.
 """
 from __future__ import annotations
 
@@ -23,7 +25,21 @@ BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libmlbm_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C entry point -> argument types; every pointer and the stream as c_void_p
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {
+    # f, out, psi, mask, ny, nx, periodic, consts, stream
+    "sc_step_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
+    "sc_step_f64": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
+    # f, g, fo, go, phi, lap, mask, ny, nx, consts, stream
+    "hcz_step_f32": [_VP] * 7 + [_I32, _I32, _VP, _VP],
+    "hcz_step_f64": [_VP] * 7 + [_I32, _I32, _VP, _VP],
+    # f, g, fo, go, phi, lap, P, nz, ny, nx, consts, stream
+    "hcz3d_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    "hcz3d_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+}
 
 _lib = None
 # nvcc's report of the last build (ptxas registers / spills per kernel)
@@ -51,22 +67,46 @@ def _stale() -> bool:
     return any(s.stat().st_mtime > built for s in sources())
 
 
+def _run_all(cmds):
+    """Start every command at once; wait for all; raise on the first that
+    failed.  Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = []
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate(timeout=600)
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the library if it is missing or older than a source."""
     global build_log, build_seconds
     if not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in sources()]
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, LIB_PATH)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(sources(), objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
+    build_log = log
     return LIB_PATH
 
 
@@ -77,12 +117,11 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("sc_step_f32", "sc_step_f64"):
+    for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp, vp]
-        fn.restype = i32
-    lib.sc_error_string.argtypes = [i32]
+        fn.argtypes = argtypes
+        fn.restype = _I32
+    lib.sc_error_string.argtypes = [_I32]
     lib.sc_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib

@@ -1,0 +1,123 @@
+"""Fused HCZ phase-field D2Q9 step on the GPU: wrapper of ``csrc/hcz_step.cu``.
+
+The counterpart of ``multiphase_lbm_tpu/ops/pallas_hcz.py:run_fused``.  On a
+CUDA tensor :func:`run_fused` launches the hand-written kernel once per step
+(a φ pass, a ∇²φ pass and a collide-and-stream pass; see the source's header
+note) or raises; it never substitutes the plain path for a failed build or
+launch.  On a CPU tensor, and only there, it runs the plain PyTorch version
+(:func:`..models.hcz.run`), which is what the CPU tests exercise.  Any row
+count works: the kernel needs none of the Pallas path's 8-row padding.
+
+``LAUNCHES`` counts kernel steps launched by this process (one per step), so
+a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models import hcz
+from ..models.hcz import HCZParams
+
+LAUNCHES = 0
+
+
+class _HCZConst(ctypes.Structure):
+    """Mirror of ``struct HCZConst`` in ``csrc/hcz_step.cu`` (same order);
+    ``csrc/hcz3d_step.cu`` shares the layout."""
+    _fields_ = [(name, ctypes.c_double) for name in (
+        "omega", "one_minus_omega", "half", "phi_g", "rho_g", "drho_dphi",
+        "a", "b_quarter", "kappa", "gravity", "gx", "Gx_const")]
+
+
+def kernel_constants(p: HCZParams) -> _HCZConst:
+    """Host-side constants of one parameter set, in float64 (the kernel
+    rounds them to its working type, as JAX rounds Python floats)."""
+    return _HCZConst(
+        omega=p.omega, one_minus_omega=1.0 - p.omega, half=1.0 - 0.5 * p.omega,
+        phi_g=p.phi_g, rho_g=p.rho_g,
+        drho_dphi=(p.rho_l - p.rho_g) / (p.phi_l - p.phi_g),
+        a=p.a, b_quarter=p.b / 4.0, kappa=p.kappa, gravity=p.gravity,
+        gx=p.gx, Gx_const=p.Gx_const)
+
+
+def check_state(f, g, ndim: int, q: int):
+    """Raise unless ``f`` and ``g`` are contiguous float32/float64 tensors of
+    one shape ``(q, *spatial)`` with ``ndim`` spatial axes, on one device."""
+    for name, t in (("f", f), ("g", g)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch tensor")
+        if t.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
+        if t.ndim != ndim + 1 or t.shape[0] != q:
+            raise ValueError(f"{name} must have shape ({q}, {ndim} lattice "
+                             f"axes), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if g.shape != f.shape or g.dtype != f.dtype or g.device != f.device:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} does not "
+                         f"match f {tuple(f.shape)} {f.dtype} on {f.device}")
+
+
+def _check_mask(f, fluid_f32):
+    if not isinstance(fluid_f32, torch.Tensor):
+        raise TypeError("fluid_f32 must be a torch tensor")
+    if fluid_f32.dtype != torch.float32:
+        raise TypeError(f"fluid_f32 must be float32, got {fluid_f32.dtype}")
+    if tuple(fluid_f32.shape) != tuple(f.shape[1:]):
+        raise ValueError(f"fluid_f32 shape {tuple(fluid_f32.shape)} does not "
+                         f"match the lattice {tuple(f.shape[1:])}")
+    if fluid_f32.device != f.device:
+        raise ValueError(f"f on {f.device} but fluid_f32 on {fluid_f32.device}")
+    if not fluid_f32.is_contiguous():
+        raise ValueError("fluid_f32 must be contiguous")
+
+
+def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
+    """Advance ``n_steps`` HCZ 2D steps; returns a new ``(f, g)``.
+
+    Args:
+      f, g: populations ``(9, ny, nx)``, float32 or float64, contiguous.
+      fluid_f32: fluid mask ``(ny, nx)`` float32 (1.0 fluid / 0.0 solid).
+    The caller's tensors are never written.
+    """
+    global LAUNCHES
+    check_state(f, g, 2, 9)
+    _check_mask(f, fluid_f32)
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    if f.device.type == "cpu":
+        return hcz.run((f, g), fluid_f32 > 0.5, p, n_steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f.device}")
+    if n_steps == 0:
+        return f.clone(), g.clone()
+
+    from . import _build
+
+    lib = _build.load()
+    step = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
+    consts = kernel_constants(p)
+    _, ny, nx = f.shape
+    bufs = ((torch.empty_like(f), torch.empty_like(g)),
+            (torch.empty_like(f), torch.empty_like(g)))
+    phi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
+    lap = torch.empty_like(phi)
+    src = (f, g)
+    # the library's runtime launches into the context current on this
+    # thread: make it the tensor's device
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        for i in range(n_steps):
+            dst = bufs[i % 2]
+            err = step(src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+                       dst[1].data_ptr(), phi.data_ptr(), lap.data_ptr(),
+                       fluid_f32.data_ptr(), ny, nx, ctypes.addressof(consts),
+                       stream)
+            if err != 0:
+                raise RuntimeError("hcz_step launch failed: "
+                                   + lib.sc_error_string(err).decode())
+            LAUNCHES += 1
+            src = dst
+    return src

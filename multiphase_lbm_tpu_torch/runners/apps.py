@@ -1,21 +1,27 @@
 """Per-problem drivers, schema-compatible with the reference app modules.
 
-Port of the Shan–Chen drivers of ``multiphase_lbm_tpu/runners/apps.py``
-(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``_run_sc``).  Each reads
-the reference's ``config_*.txt`` keys, runs the solver in chunks of the
-output cadence and emits the same observables: ``sol_*.vtk`` with the
-module's field list, ``energy.dat`` / ``mass.dat`` / ``contact_angle.dat``
-and the final MLUPS line.  State on a CUDA device advances through the
-fused kernel (:func:`..ops.sc_fused.run_fused`); state on the CPU through
-the plain :func:`..models.shan_chen.run`.
+Port of the Shan–Chen and HCZ drivers of ``multiphase_lbm_tpu/runners/apps.py``
+(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``run_rayleigh_taylor_pf``,
+``run_two_layered_pf``, ``run_laplace3d``).  Each reads the reference's
+``config_*.txt`` keys, runs the solver in chunks of the output cadence and
+emits the same observables: ``sol_*.vtk`` with the module's field list,
+``energy.dat`` / ``mass.dat`` / ``contact_angle.dat`` /
+``spike_bubble_position.dat`` / ``spike_bubble_velocity.dat`` /
+``density_probe.dat`` and the final MLUPS line.  State on a CUDA device
+advances through the fused kernels (:mod:`..ops.sc_fused`,
+:mod:`..ops.hcz_fused`, :mod:`..ops.hcz3d_fused`); state on the CPU through
+the plain model functions.  The HCZ drivers keep the lattice of the JAX
+XLA path (no 8-row padding), so VTK dimensions and the MLUPS element count
+match the JAX CLI without ``--fused``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..io.config import lb_parameters, load_config, omega_from_tau
+from ..models import hcz
 from ..models import shan_chen as sc
-from ..ops import sc_fused
+from ..ops import hcz3d_fused, hcz_fused, sc_fused
 from .common import Driver, next_chunk
 
 
@@ -116,7 +122,142 @@ def _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact, periodic):
         f = sc_fused.run_fused(f, fluid_f32, p, chunk, periodic=periodic)
         drv.clock.tick(chunk)
         it += chunk
+    _finish(drv, f)
+    return f
+
+
+def _hcz_params(cfg, omega, kappa, **extra):
+    return hcz.HCZParams(
+        omega=omega, phi_l=_num(cfg, "phi_l", 0.251),
+        phi_g=_num(cfg, "phi_g", 0.024), rho_l=_num(cfg, "rho_l", 0.12),
+        rho_g=_num(cfg, "rho_g", 0.04), a=_num(cfg, "a", 4.0),
+        b=_num(cfg, "b", 4.0), kappa=_num(cfg, "kappa", kappa), **extra)
+
+
+def _flag(fluid):
+    """The VTK ``Flag`` field: 1 at solid cells (static, tiny)."""
+    return (~fluid).cpu().numpy().astype(int)
+
+
+# ─── HCZ Rayleigh-Taylor (reference PF rayleighTaylor2D.h :862-988) ────────
+def run_rayleigh_taylor_pf(config, outdir, dtype=torch.float64, max_steps=None,
+                           *, device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 256)
+    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
+                                      _num(cfg, "Re", 3000.0))
+    p = _hcz_params(cfg, omega, 0.01, gravity=_num(cfg, "gravity", -6.25e-6))
+    ny = 4 * N + 2
+    fluid = hcz.geometry_channel(N, ny, device=device)
+    state = hcz.apply_geometry(
+        hcz.init_rayleigh_taylor(N, ny, p, dtype=dtype, device=device), fluid)
+    steps = max_steps or int(_num(cfg, "max_t", 5.01) / dt)
+    drv = Driver(outdir, N * ny, out_freq=_int(cfg, "out_freq", 3200),
+                 vtk_freq=_int(cfg, "vtk_freq", 3200))
+    fluid_f32 = fluid.to(torch.float32)
+    flag = _flag(fluid)
+    it = 0
+    prev_sb = None
+    while it < steps:
+        if drv.want_vtk(it):
+            phi = hcz.order_parameter(state[0])
+            drv.write_vtk(it, N, ny, spacing=1.0 / N,
+                          scalars=[("phi", phi), ("density", hcz.rho_of_phi(phi, p))],
+                          int_scalars=[("Flag", flag)])
+        if drv.want_out(it):
+            e = float(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+            drv.log_file("energy.dat").log(it * dt, e)
+            s, b = hcz.interface_heights(
+                hcz.order_parameter(state[0]).cpu().numpy(), p)
+            drv.log_file("spike_bubble_position.dat").log(
+                it * dt, s * dx, b * dx)
+            # finite-difference interface velocities over the output cadence
+            # (the series the reference's validation notebook derives from
+            # the positions)
+            if prev_sb is not None:
+                t_prev, s_prev, b_prev = prev_sb
+                dti = it * dt - t_prev
+                drv.log_file("spike_bubble_velocity.dat").log(
+                    it * dt, (s * dx - s_prev) / dti, (b * dx - b_prev) / dti)
+            prev_sb = (it * dt, s * dx, b * dx)
+        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+        state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
+        drv.clock.tick(chunk)
+        it += chunk
+    _finish(drv, state[0])
+    return state
+
+
+# ─── HCZ layered channel (reference PF twoLayeredFlow2D.h :762-905) ────────
+def run_two_layered_pf(config, outdir, dtype=torch.float64, max_steps=None,
+                       *, device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 100)
+    omega, dx, dt = _omega(cfg, N)
+    p = _hcz_params(cfg, omega, 0.001, gx=_num(cfg, "gx", 0.0),
+                    Gx_const=_num(cfg, "Gx_const", 1e-8))
+    fluid = hcz.geometry_channel(N, N, device=device)
+    state = hcz.apply_geometry(
+        hcz.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
+                        w_int=_int(cfg, "w_int", 2), dtype=dtype,
+                        device=device), fluid)
+    steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
+    drv = Driver(outdir, N * N, out_freq=_int(cfg, "out_freq", 500),
+                 vtk_freq=_int(cfg, "vtk_freq", 1000))
+    fluid_f32 = fluid.to(torch.float32)
+    flag = _flag(fluid)
+    it = 0
+    while it < steps:
+        if drv.want_vtk(it):
+            phi = hcz.order_parameter(state[0])
+            drv.write_vtk(it, N, N, spacing=dx,
+                          scalars=[("phi", phi), ("density", hcz.rho_of_phi(phi, p))],
+                          int_scalars=[("Flag", flag)])
+        if drv.want_out(it):
+            e = float(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+            drv.log_file("energy.dat").log(it * dt, e)
+            rho = hcz.rho_of_phi(hcz.order_parameter(state[0]), p)
+            drv.log_file("density_probe.dat").log(
+                it * dt, float(rho[N // 2, N // 2]), float(rho[2, N // 2]))
+        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+        state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
+        drv.clock.tick(chunk)
+        it += chunk
+    _finish(drv, state[0])
+    return state
+
+
+# ─── HCZ 3D droplet (reference laplace3D.h :853-952) ───────────────────────
+def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
+                  device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 100)
+    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.01), N,
+                                      _num(cfg, "Re", 6.0))
+    p = _hcz_params(cfg, omega, 5e-4, gravity=_num(cfg, "gravity", 0.0))
+    state = hcz.init_droplet_3d(N, N, N, p, dtype=dtype, device=device)
+    fluid = hcz.geometry_periodic_3d(N, N, N, device=device)
+    steps = max_steps or int(_num(cfg, "max_t", 5.0) / dt)
+    drv = Driver(outdir, N ** 3, out_freq=_int(cfg, "out_freq", 100),
+                 vtk_freq=_int(cfg, "vtk_freq", 100))
+    it = 0
+    while it < steps:
+        if drv.want_vtk(it):
+            drv.write_vtk(it, N, N, N, spacing=1.0 / N,
+                          scalars=[("phi", hcz.order_parameter(state[0]))])
+        if drv.want_out(it):
+            e = float(hcz.kinetic_energy(state, fluid, p, hcz.D3Q19,
+                                         three_d=True))
+            drv.log_file("energy.dat").log(it * dt, e)
+        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+        state = hcz3d_fused.run_fused_3d(*state, p, chunk)
+        drv.clock.tick(chunk)
+        it += chunk
+    _finish(drv, state[0])
+    return state
+
+
+def _finish(drv, f):
     if f.is_cuda:
         torch.cuda.synchronize(f.device)   # the MLUPS line times finished work
     drv.finish()
-    return f

@@ -4,10 +4,14 @@
         [--config config.txt] [--outdir out] [--steps N] [--f32] \
         [--device cuda|cpu]
 
-Ported problems: laplace2D_sc, contactAngle2D.  The JAX CLI's other
-problems are named so that asking for one says which ROADMAP.md item
-brings it.  On a CUDA device the solver runs the fused CUDA kernel; on the
-CPU, the plain PyTorch path.
+Ported problems: laplace2D_sc, contactAngle2D, rayleighTaylor2D,
+twoLayeredFlow2D, laplace3D.  The JAX CLI's other problems are named so
+that asking for one says which ROADMAP.md item brings it.  The device
+defaults to ``cuda``, where the solver runs the fused CUDA kernels (there
+is no ``--fused`` flag: on the card the kernel is the path).  The plain
+PyTorch path runs only when ``--device cpu`` asks for it: without a visible
+card and without that flag the CLI refuses to start, so a missing card is
+never hidden behind a CPU run.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ from . import apps
 PROBLEMS = {
     "laplace2D_sc": (apps.run_sc_laplace2d, "sc_Laplace2D.txt"),
     "contactAngle2D": (apps.run_sc_contact_angle, "sc_contactAngle2D.txt"),
+    "rayleighTaylor2D": (apps.run_rayleigh_taylor_pf, "pf_rayleighTaylor2D.txt"),
+    "twoLayeredFlow2D": (apps.run_two_layered_pf, "pf_twoLayeredFlow2D.txt"),
+    "laplace3D": (apps.run_laplace3d, "pf_laplace3D.txt"),
 }
 
 # problem of the JAX CLI -> the ROADMAP.md item that ports it
@@ -29,9 +36,6 @@ NOT_PORTED = {
     "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
     "RayleighTaylor2D_sc": "Queue A item 7 (models/shan_chen_rt.py)",
     "Young_Laplace2D": "Queue A item 6 (models/fakhari.py)",
-    "rayleighTaylor2D": "Queue A item 5 (models/hcz.py, 2D)",
-    "twoLayeredFlow2D": "Queue A item 5 (models/hcz.py, 2D)",
-    "laplace3D": "Queue A item 8 (models/hcz.py, 3D)",
     "PulsatileBloodFlow2D": "Queue A item 9 (models/pulsatile.py)",
     "combustion": "Queue A item 10 (models/combustion.py)",
 }
@@ -50,17 +54,20 @@ def main(argv=None):
                     help="override the step count from the config")
     ap.add_argument("--f32", action="store_true",
                     help="run in float32 (the GPU production dtype)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when a GPU is "
-                         "visible, else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default, the kernels) or cpu "
+                         "(the plain PyTorch path)")
     args = ap.parse_args(argv)
 
     if args.problem in NOT_PORTED:
         raise NotImplementedError(
             f"{args.problem} is not yet ported to multiphase_lbm_tpu_torch; "
             f"see ROADMAP.md {NOT_PORTED[args.problem]}")
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("coolbm: no CUDA device is visible; pass --device cpu to run "
+              "the plain PyTorch path on the CPU", file=sys.stderr)
+        return 2
     dtype = torch.float32 if args.f32 else torch.float64
     fn, config_name = PROBLEMS[args.problem]
     cfg = args.config

@@ -1,14 +1,15 @@
 """Carry parameters and state from the JAX package to the port.
 
 Both sides exchange plain Python and numpy values, so nothing here imports
-jax: a caller holding a JAX ``SCParams`` passes ``dataclasses.asdict`` of
-it, and JAX arrays as ``np.asarray`` copies.
+jax: a caller holding a JAX ``SCParams`` or ``HCZParams`` passes
+``dataclasses.asdict`` of it, and JAX arrays as ``np.asarray`` copies.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..models.hcz import HCZParams
 from ..models.shan_chen import SCParams
 
 
@@ -18,9 +19,23 @@ def params_from_jax(d: dict) -> SCParams:
     return SCParams(**d)
 
 
+def hcz_params_from_jax(d: dict) -> HCZParams:
+    """The port's ``HCZParams`` from ``dataclasses.asdict`` of the JAX one
+    (same fields; an unknown key raises)."""
+    return HCZParams(**d)
+
+
 def state_from_numpy(f_np, fluid_np, device, dtype=torch.float64):
     """``(f, fluid)`` tensors on ``device``: populations ``(9, ny, nx)`` in
     ``dtype`` and the bool fluid mask ``(ny, nx)``."""
     f = torch.as_tensor(np.array(f_np), dtype=dtype, device=device)
     fluid = torch.as_tensor(np.array(fluid_np, dtype=bool), device=device)
     return f, fluid
+
+
+def hcz_state_from_numpy(f_np, g_np, fluid_np, device, dtype=torch.float64):
+    """``((f, g), fluid)`` on ``device``: the two distributions
+    ``(Q, *lattice)`` in ``dtype`` and the bool fluid mask ``lattice``."""
+    f, fluid = state_from_numpy(f_np, fluid_np, device, dtype)
+    g = torch.as_tensor(np.array(g_np), dtype=dtype, device=device)
+    return (f, g), fluid

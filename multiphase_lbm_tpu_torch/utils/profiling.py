@@ -19,8 +19,11 @@ import torch
 
 
 def _sync(out):
-    if isinstance(out, torch.Tensor) and out.is_cuda:
-        torch.cuda.synchronize(out.device)
+    """Wait for the device work behind ``out``: a tensor or a tuple of
+    tensors (a two-distribution state)."""
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
 
 
 def _timed(fn, state0, reps):
@@ -57,6 +60,38 @@ def measure_mlups(step_n_fn, state0, n_steps: int, nelem: int,
     dt, spread, out = _timed(step_n_fn, state0, reps)
     return Reading(nelem * n_steps / dt / 1e6, dt * 1e3 / n_steps, spread,
                    True, out)
+
+
+def device_profile(step_n_fn, state0, n_steps: int) -> dict:
+    """One call of ``step_n_fn(state0)`` (advancing ``n_steps``) under
+    ``torch.profiler`` after a warm call: device time per step by kernel
+    name, the device's busy time per step and its idle share of the host
+    wall time of the call (which ends in a device synchronise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(step_n_fn(state0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _sync(step_n_fn(state0))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        # device-side events only: an aten op's own row repeats the time
+        # of the kernels it launched
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            kernels.append({"name": e.key[:96], "ms_per_step": us / 1e3 / n_steps,
+                            "calls_per_step": e.count / n_steps})
+    kernels.sort(key=lambda k: -k["ms_per_step"])
+    busy = sum(k["ms_per_step"] for k in kernels)
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
+            "device_busy_ms_per_step": busy,
+            "idle_share": max(0.0, 1.0 - busy * n_steps / wall_ms),
+            "kernels": kernels[:12]}
 
 
 def measure_mlups_slope(make_step_fn, state0, n1: int, n2: int, nelem: int,

@@ -164,7 +164,12 @@ def test_port_imports_no_jax():
         "import multiphase_lbm_tpu_torch\n"
         "import multiphase_lbm_tpu_torch.bench\n"
         "import multiphase_lbm_tpu_torch.models.shan_chen\n"
+        "import multiphase_lbm_tpu_torch.models.hcz\n"
+        "import multiphase_lbm_tpu_torch.core.stencil\n"
         "import multiphase_lbm_tpu_torch.ops.sc_fused\n"
+        "import multiphase_lbm_tpu_torch.ops.hcz_fused\n"
+        "import multiphase_lbm_tpu_torch.ops.hcz3d_fused\n"
+        "import multiphase_lbm_tpu_torch.validation.rti_regression\n"
         "import multiphase_lbm_tpu_torch.ops._build\n"
         "import multiphase_lbm_tpu_torch.runners.coolbm\n"
         "import multiphase_lbm_tpu_torch.utils.convert\n"
@@ -220,3 +225,12 @@ def test_measure_mlups_counts_steps():
     rd = profiling.measure_mlups(lambda s: s + 1, torch.zeros(4), 10, 100, reps=2)
     assert rd.valid and rd.mlups > 0 and rd.ms_per_step > 0
     assert torch.equal(rd.out, torch.ones(4))
+
+
+def test_device_profile_on_the_cpu_has_no_device_time():
+    """The profiler helper's bookkeeping: on CPU tensors no kernel runs on
+    a device, so it reports no device time and an idle share of 1."""
+    prof = profiling.device_profile(lambda s: s * 2.0 + 1.0, torch.ones(64), 4)
+    assert prof["steps"] == 4 and prof["wall_ms_per_step"] > 0
+    assert prof["kernels"] == [] and prof["device_busy_ms_per_step"] == 0
+    assert prof["idle_share"] == 1.0

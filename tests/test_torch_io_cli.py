@@ -50,6 +50,13 @@ CLI_CASES = {
                      dict(N=40, out_freq=20, vtk_freq=20), 40),
     "contactAngle2D": ("sc_contactAngle2D.txt",
                        dict(N=20, RR=8, tau=0.8, out_freq=10, vtk_freq=10), 20),
+    # the HCZ problems at N = 16 with Re lowered so that ω ≈ 1.5
+    "rayleighTaylor2D": ("pf_rayleighTaylor2D.txt",
+                         dict(N=16, Re=11.52, out_freq=10, vtk_freq=20), 40),
+    "twoLayeredFlow2D": ("pf_twoLayeredFlow2D.txt",
+                         dict(N=16, Re=28.8, out_freq=10, vtk_freq=20), 40),
+    "laplace3D": ("pf_laplace3D.txt",
+                  dict(N=16, Re=2.88, out_freq=10, vtk_freq=10), 20),
 }
 
 
@@ -82,7 +89,17 @@ def test_cli_matches_jax_cli(problem, tmp_path):
 
 def test_cli_names_the_roadmap_item_for_unported_problems():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcoolbm.main(["laplace3D", "--device", "cpu"])
+        tcoolbm.main(["Young_Laplace2D", "--device", "cpu"])
+
+
+def test_cli_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch,
+                                                             capsys, tmp_path):
+    """The device defaults to cuda; with no visible card the CLI exits
+    non-zero and names --device cpu instead of running on the CPU."""
+    monkeypatch.setattr(tcoolbm.torch.cuda, "is_available", lambda: False)
+    assert tcoolbm.main(["rayleighTaylor2D", "--outdir", str(tmp_path)]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in CONFIG_DIR.glob("*.txt")))
