@@ -45,9 +45,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (slope 50/150) beside the plain path (2/6); then coolbm laplace3D
      --f32 --steps 200 (config N = 100) writes its files through
      hcz3d_step.
+ 10. Fakhari main path — bench --model fakhari: the 2048² bubble float32
+     through fakhari_step (slope 100/300) beside the plain path (2/6);
+     state finite, Σφ drift < 1e-4 (summed in float64); the Laplace gate
+     of tests/test_fakhari.py through the kernel (64² float64, 2000 steps:
+     ΔP within 35% of σ/R, Σφ conserved to 1e-12); coolbm Young_Laplace2D
+     --f32 --steps 2000 (config N = 128) writes sol_0000000.vtk,
+     sol_0001000.vtk, energy.dat, mass.dat and its MLUPS line.
+ 11. SC-RT main path — bench --model scrt: 2048 × 8194 float32 through
+     scrt_step (slope 100/300) beside the plain path (2/6); state finite,
+     mass drift < 1e-4 (summed in float64); the C++ capture
+     (config N = 128, float64) at steps 250 and 1000 within 5e-5 on both
+     probe columns, steps 2000 and 3000 printed; coolbm RayleighTaylor2D_sc
+     --f32 --steps 200 (config N = 128) writes sol_0000000.vtk,
+     sol_0000100.vtk, energy.dat, mass.dat, spike_bubble_position.dat and
+     its MLUPS line.
+In phase 3 also: fakhari_step on the 128² bubble at τ = 0.8 and 0.55,
+float32 over 5 steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps
+(atol 1e-12), and 2048² float32, 5 steps; scrt_step on the 128 × 514
+channel at ω = 1 and 1.25, float32 over 5 steps (rtol 2e-5, atol 2e-6) and
+float64 over 20 steps (atol 1e-12), and 2048 × 8194 float32, 5 steps.
 Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 6-8, 9) and read just after.  Then one JSON line with every
-kernel of the paths and, last, {"ok": true, "device": {...}}.
+(phases 4-5, 6-8, 9, 10, 11) and read just after.  Then one JSON line with
+every kernel of the paths and, last, {"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -65,6 +85,8 @@ F32_TOL = dict(rtol=2e-5, atol=2e-6)
 F64_TOL = dict(rtol=0.0, atol=1e-12)
 HCZ_F32_TOL = dict(rtol=3e-5, atol=3e-6)
 HCZ3D_F32_TOL = dict(rtol=5e-5, atol=5e-6)
+FAKHARI_F32_TOL = dict(rtol=5e-5, atol=5e-6)
+SCRT_F32_TOL = dict(rtol=2e-5, atol=2e-6)
 
 # H100 SXM data sheet: 3.35 TB/s of device memory, 67 TFLOP/s float32
 # outside the tensor cores (the kernels use none).
@@ -75,9 +97,13 @@ F32_FLOP_PER_S = 67e12
 # must do (each field formed once per cell), counted from the arithmetic of
 # the step: sc_step reads and writes 9 populations (no mask when periodic);
 # hcz_step reads and writes 2 × 9 populations and reads the mask; hcz3d_step
-# reads and writes 2 × 19 populations.
+# reads and writes 2 × 19 populations; fakhari_step reads and writes h, g
+# (2 × 9) and u (2), and forms the fields, the stress and the force twice
+# (before the collision and after the streaming); scrt_step reads and writes
+# 9 populations (the walls follow from the row index).
 WORK_PER_CELL = {"sc_step": (72, 200), "hcz_step": (148, 600),
-                 "hcz3d_step": (304, 1300)}
+                 "hcz3d_step": (304, 1300), "fakhari_step": (160, 750),
+                 "scrt_step": (72, 300)}
 
 
 def bound(name, cells):
@@ -157,12 +183,15 @@ def main():
     dev = torch.device("cuda")
 
     from multiphase_lbm_tpu_torch import bench
+    from multiphase_lbm_tpu_torch.models import fakhari as fk
     from multiphase_lbm_tpu_torch.models import hcz
     from multiphase_lbm_tpu_torch.models import shan_chen as sc
+    from multiphase_lbm_tpu_torch.models import shan_chen_rt as rt
     from multiphase_lbm_tpu_torch.ops import _build, hcz3d_fused, hcz_fused
-    from multiphase_lbm_tpu_torch.ops import sc_fused
+    from multiphase_lbm_tpu_torch.ops import fakhari_fused, sc_fused, scrt_fused
     from multiphase_lbm_tpu_torch.runners import coolbm
     from multiphase_lbm_tpu_torch.validation import rti_regression
+    from multiphase_lbm_tpu_torch.validation import scrt_reference
 
     # ---- 2. build ----
     _build.build()
@@ -255,6 +284,45 @@ def main():
     err_hcz3d = compare("hcz3d_step droplet 128^3 omega=1.2 float32 3 steps",
                         out, ref, HCZ3D_F32_TOL, failures)
     del st, out, ref
+
+    for tau in (0.8, 0.55):
+        pf = fk.FakhariParams(tau=tau)
+        for dtype, steps, tol in ((torch.float32, 5, FAKHARI_F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            st = fk.init_bubble(128, 128, pf, dtype=dtype, device=dev)
+            out = fakhari_fused.run_fused(*st, pf, steps)
+            ref = fk.run(st, pf, steps)
+            compare(f"fakhari_step bubble 128x128 tau={tau} "
+                    f"{str(dtype)[6:]} {steps} steps", out, ref, tol, failures)
+    pf = fk.FakhariParams()
+    st = fk.init_bubble(n, n, pf, dtype=torch.float32, device=dev)
+    out = fakhari_fused.run_fused(*st, pf, 5)
+    ref = fk.run(st, pf, 5)
+    err_fakhari = compare(f"fakhari_step bubble {n}x{n} tau=0.8 float32 "
+                          "5 steps", out, ref, FAKHARI_F32_TOL, failures)
+    del st, out, ref
+
+    def scrt_case(nx, omega, dtype):
+        pr = rt.SCRTParams(omega=omega)
+        fluid = rt.geometry_channel(nx, 4 * nx + 2, device=dev)
+        f = rt.init_interface(nx, 4 * nx + 2, pr, dtype=dtype,
+                              device=dev) * fluid[None]
+        return pr, f, fluid
+
+    for omega in (1.0, 1.25):
+        for dtype, steps, tol in ((torch.float32, 5, SCRT_F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            pr, f, fluid = scrt_case(128, omega, dtype)
+            out = scrt_fused.run_fused(f, pr, steps)
+            ref = rt.run(f, fluid, pr, steps)
+            compare(f"scrt_step channel 128x514 omega={omega} "
+                    f"{str(dtype)[6:]} {steps} steps", out, ref, tol, failures)
+    pr, f, fluid = scrt_case(n, 1.0, torch.float32)
+    out = scrt_fused.run_fused(f, pr, 5)
+    ref = rt.run(f, fluid, pr, 5)
+    err_scrt = compare(f"scrt_step channel {n}x{4 * n + 2} omega=1.0 float32 "
+                       "5 steps", out, ref, SCRT_F32_TOL, failures)
+    del f, fluid, out, ref
     if failures:
         raise SystemExit(f"kernel disagrees with the plain path: {failures}")
 
@@ -357,6 +425,91 @@ def main():
     check(hcz3d_fused.LAUNCHES > bench3d_launches,
           "the laplace3D CLI did not launch the kernel")
 
+    # ---- 10. Fakhari main path: the 2048² bubble ----
+    rec_fk_plain, rd, _ = bench.run(model="fakhari", steps=2, steps2=6,
+                                    plain=True)
+    say(f"[bench fakhari plain] {json.dumps(rec_fk_plain)}")
+    check(rd.valid, rec_fk_plain)
+    del rd
+    fakhari_fused.LAUNCHES = 0         # count the Fakhari path's launches only
+    rec_fk, rd, st0 = bench.run(model="fakhari", steps=100, steps2=300)
+    say(f"[bench fakhari kernel] {json.dumps(rec_fk)}")
+    check(rd.valid, rec_fk)
+    check(fakhari_fused.LAUNCHES > 0, "the Fakhari bench did not launch the kernel")
+    check(all(bool(torch.isfinite(t).all()) for t in rd.out),
+          "non-finite Fakhari state")
+    m0 = float(st0[0].double().sum())
+    drift = abs(float(rd.out[0].double().sum()) - m0) / m0
+    say(f"[physics] Fakhari {n}^2 sum(phi) drift {drift:.3e} (< 1e-4)")
+    check(drift < 1e-4, f"Fakhari phase drift {drift}")
+    say(f"[main path] kernel {rec_fk['value']:.1f} MLUPS vs plain "
+        f"{rec_fk_plain['value']:.1f} MLUPS at the Fakhari bubble {n}x{n} "
+        f"float32 on {card}")
+    del rd, st0
+    pf = fk.FakhariParams()
+    st = fk.init_bubble(64, 64, pf, dtype=torch.float64, device=dev)
+    m0 = float(fk.total_mass(st, pf))
+    st = fakhari_fused.run_fused(*st, pf, 2000)
+    C = fk.phase_field(st).cpu().numpy()
+    rho = pf.rhol + C * (pf.rhoh - pf.rhol)
+    pphys = fk.pressure(st).cpu().numpy() * rho / 3.0
+    dp = float(pphys[32, 32] - pphys[2, 2])
+    expected = pf.sigma / 8.0
+    mdrift = abs(float(fk.total_mass(st, pf)) - m0) / m0
+    say(f"[physics] Fakhari Laplace 64^2 float64 2000 steps: dP {dp:.4e} vs "
+        f"sigma/R {expected:.4e} (within 35%), mass drift {mdrift:.2e} "
+        f"(< 1e-12), bubble phi {C[32, 32]:.3e} (< 0.05), bulk {C[2, 2]:.4f}")
+    check(dp > 0 and abs(dp - expected) / expected < 0.35,
+          f"Fakhari Laplace jump {dp} against {expected}")
+    check(mdrift < 1e-12, f"Fakhari mass drift {mdrift}")
+    check(C[32, 32] < 0.05 and C[2, 2] > 0.95, "the Fakhari bubble moved")
+    del st
+    before_cli = fakhari_fused.LAUNCHES
+    run_cli(coolbm, ["Young_Laplace2D", "--f32", "--steps", "2000"],
+            ("sol_0000000.vtk", "sol_0001000.vtk", "energy.dat", "mass.dat"))
+    fakhari_launches = fakhari_fused.LAUNCHES
+    check(fakhari_launches > before_cli,
+          "the Young_Laplace2D CLI did not launch the kernel")
+
+    # ---- 11. SC-RT main path: 2048 × 8194 ----
+    rec_rt_plain, rd, _ = bench.run(model="scrt", steps=2, steps2=6,
+                                    plain=True)
+    say(f"[bench scrt plain] {json.dumps(rec_rt_plain)}")
+    check(rd.valid, rec_rt_plain)
+    del rd
+    scrt_fused.LAUNCHES = 0            # count the SC-RT path's launches only
+    rec_rt, rd, f0 = bench.run(model="scrt", steps=100, steps2=300)
+    say(f"[bench scrt kernel] {json.dumps(rec_rt)}")
+    check(rd.valid, rec_rt)
+    check(scrt_fused.LAUNCHES > 0, "the SC-RT bench did not launch the kernel")
+    check(bool(torch.isfinite(rd.out).all()), "non-finite SC-RT state")
+    m0 = float(f0.double().sum())
+    drift = abs(float(rd.out.double().sum()) - m0) / m0
+    say(f"[physics] SC-RT {n}x{4 * n + 2} mass drift {drift:.3e} (< 1e-4)")
+    check(drift < 1e-4, f"SC-RT mass drift {drift}")
+    say(f"[main path] kernel {rec_rt['value']:.1f} MLUPS vs plain "
+        f"{rec_rt_plain['value']:.1f} MLUPS at SC-RT {n}x{4 * n + 2} float32 "
+        f"on {card}")
+    del rd, f0
+    rows = scrt_reference.compare(device=dev)
+    for step, row in rows.items():
+        gated = step in scrt_reference.GATED_STEPS
+        say(f"[capture] SC-RT N=128 float64 step {step}: max |drho| col0 "
+            f"{row['col0']:.3e}, colmid {row['colmid']:.3e} "
+            f"({'< 5e-5' if gated else 'not gated'}); spike/bubble rows "
+            f"{row['spike']:.0f}/{row['bubble']:.0f}, capture "
+            f"{row.get('ref_spike', '-')}/{row.get('ref_bubble', '-')}")
+        if gated:
+            check(row["col0"] < scrt_reference.ATOL
+                  and row["colmid"] < scrt_reference.ATOL,
+                  f"SC-RT departs from the C++ capture at step {step}: {row}")
+    before_cli = scrt_fused.LAUNCHES
+    run_cli(coolbm, ["RayleighTaylor2D_sc", "--f32", "--steps", "200"],
+            ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat", "mass.dat",
+             "spike_bubble_position.dat"))
+    check(scrt_fused.LAUNCHES > before_cli,
+          "the RayleighTaylor2D_sc CLI did not launch the kernel")
+
     def entry(name, source, replaces, launches, err, rec_k, rec_p, cells):
         bound_ms, bound_by = bound(name, cells)
         return {"name": name, "route": "cuda",
@@ -375,6 +528,12 @@ def main():
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
               hcz3d_fused.LAUNCHES, err_hcz3d, rec_3d, rec_3d_plain, 128 ** 3),
+        entry("fakhari_step", "fakhari_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,
+              err_fakhari, rec_fk, rec_fk_plain, n * n),
+        entry("scrt_step", "scrt_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_fused.LAUNCHES,
+              err_scrt, rec_rt, rec_rt_plain, n * (4 * n + 2)),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,9 +11,17 @@ kernels:
   Re 2048, u_lb 0.04, κ 0.01, gravity −u_lb²/N;
 * ``hcz3d``: the D3Q19 HCZ droplet (``configs/pf_laplace3D.txt`` physics,
   ω = 1 from Re 6, u_lb 0.01 at N = 100), 128³ periodic, float32, kernel
-  ``csrc/hcz3d_step.cu``.
+  ``csrc/hcz3d_step.cu``;
+* ``fakhari``: the Fakhari conservative phase-field bubble
+  (``configs/young_laplace2D.txt`` physics, the ``FakhariParams`` defaults:
+  ρ_H/ρ_L = 1000, τ = 0.8), 2048² periodic, R = N/8, float32, kernel
+  ``csrc/fakhari_step.cu``;
+* ``scrt``: the Shan–Chen Rayleigh–Taylor channel at the reference's
+  {N, 4N + 2} domain, 2048 × 8194 (walls at y = 0 and y = ny − 1), with the
+  ``SCRTParams`` defaults (``configs/sc_RayleighTaylor2D.txt`` physics at
+  N = 128, ω = 1), float32, kernel ``csrc/scrt_step.cu``.
 
-    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d]
+    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d|fakhari|scrt]
         [--size N] [--steps 200] [--steps2 600] [--collision mrt] [--plain]
         [--reps 3] [--profile STEPS]
 
@@ -38,13 +46,16 @@ import sys
 import torch
 
 from .io.config import lb_parameters
+from .models import fakhari as fk
 from .models import hcz
 from .models import shan_chen as sc
-from .ops import hcz3d_fused, hcz_fused, sc_fused
+from .models import shan_chen_rt as rt
+from .ops import fakhari_fused, hcz3d_fused, hcz_fused, sc_fused, scrt_fused
 from .utils.profiling import device_profile, measure_mlups_slope
 from .validation.rti_regression import rti_state
 
-DEFAULT_SIZE = {"sc": 2048, "rti": 2048, "hcz3d": 128}
+DEFAULT_SIZE = {"sc": 2048, "rti": 2048, "hcz3d": 128, "fakhari": 2048,
+                "scrt": 2048}
 
 
 def card_name_and_power() -> str:
@@ -105,6 +116,30 @@ def _case(model, n, collision, plain, device):
                 return lambda s: hcz3d_fused.run_fused_3d(*s, p, ns)
         return (state0, make_step, n ** 3,
                 f"MLUPS_D3Q19_HCZ_droplet_{n}^3_{label}")
+    if model == "fakhari":
+        p = fk.FakhariParams()
+        state0 = fk.init_bubble(n, n, p, dtype=torch.float32, device=device)
+        if plain:
+            def make_step(ns):
+                return lambda s: fk.run(s, p, ns)
+        else:
+            def make_step(ns):
+                return lambda s: fakhari_fused.run_fused(*s, p, ns)
+        return (state0, make_step, n * n,
+                f"MLUPS_D2Q9_Fakhari_bubble_{n}x{n}_{label}")
+    if model == "scrt":
+        p = rt.SCRTParams()
+        ny = 4 * n + 2
+        fluid = rt.geometry_channel(n, ny, device=device)
+        f0 = rt.init_interface(n, ny, p, dtype=torch.float32,
+                               device=device) * fluid[None]
+        if plain:
+            def make_step(ns):
+                return lambda v: rt.run(v, fluid, p, ns)
+        else:
+            def make_step(ns):
+                return lambda v: scrt_fused.run_fused(v, p, ns)
+        return f0, make_step, n * ny, f"MLUPS_D2Q9_SCRT_{n}x{ny}_{label}"
     raise ValueError(f"unknown model {model!r}")
 
 
@@ -112,8 +147,9 @@ def run(size=None, steps=200, steps2=None, collision="mrt", plain=False,
         reps=3, model="sc", profile_steps=0):
     """Time one benchmark on ``cuda``; returns ``(record, reading, state0)``
     where ``reading.out`` is the state after the last timed call and
-    ``state0`` the initial state it started from (a tensor for ``sc``, an
-    ``(f, g)`` pair for the HCZ models)."""
+    ``state0`` the initial state it started from (a tensor for ``sc`` and
+    ``scrt``, an ``(f, g)`` pair for the HCZ models, ``(h, g, u)`` for
+    ``fakhari``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     n = size or DEFAULT_SIZE[model]
@@ -148,8 +184,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="bench")
     ap.add_argument("--model", default="sc", choices=sorted(DEFAULT_SIZE))
     ap.add_argument("--size", type=int, default=None,
-                    help="lattice N (default 2048 for sc and rti, 128 for "
-                         "hcz3d); rti runs N x (4N + 2)")
+                    help="lattice N (default 2048, 128 for hcz3d); rti "
+                         "and scrt run N x (4N + 2)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--steps2", type=int, default=None,
                     help="second step count of the slope (default 3x --steps)")

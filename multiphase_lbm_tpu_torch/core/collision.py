@@ -14,6 +14,13 @@ import torch
 from .lattice import K_FROM_I, Lattice
 
 
+def lattice_tensors(lattice: Lattice, like):
+    """``(w, c)`` of ``lattice`` as tensors of ``like``'s dtype on its
+    device."""
+    return (torch.as_tensor(lattice.w, dtype=like.dtype, device=like.device),
+            torch.as_tensor(lattice.c, dtype=like.dtype, device=like.device))
+
+
 # ─── equilibria ────────────────────────────────────────────────────────────
 def equilibrium(rho, u, lattice: Lattice):
     """Standard second-order equilibrium
@@ -26,12 +33,22 @@ def equilibrium(rho, u, lattice: Lattice):
       u: ``(d, [z,] y, x)`` ordered (ux, uy[, uz]).
     Returns: ``(Q, [z,] y, x)``.
     """
-    w = torch.as_tensor(lattice.w, dtype=rho.dtype, device=rho.device)
-    c = torch.as_tensor(lattice.c, dtype=rho.dtype, device=rho.device)
+    w, c = lattice_tensors(lattice, rho)
     cu = torch.einsum("kd,d...->k...", c, u)
     usqr = 1.5 * torch.einsum("d...,d...->...", u, u)
     shape = (lattice.q,) + (1,) * rho.ndim
     return rho[None] * w.reshape(shape) * (1.0 + 3.0 * cu + 4.5 * cu * cu - usqr[None])
+
+
+def gamma_minus_w(u, lattice: Lattice):
+    """Fakhari Γ_k − w_k = w_k (3 c·u + 4.5 (c·u)² − 1.5 u²).
+
+    Reference ``Young_Laplace2D.h:174-180``."""
+    w, c = lattice_tensors(lattice, u)
+    cu = torch.einsum("kd,d...->k...", c, u)
+    usqr = 1.5 * torch.einsum("d...,d...->...", u, u)
+    shape = (lattice.q,) + (1,) * (u.ndim - 1)
+    return w.reshape(shape) * (3.0 * cu + 4.5 * cu * cu - usqr[None])
 
 
 # ─── BGK ───────────────────────────────────────────────────────────────────

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import eos
+from ..core.collision import lattice_tensors
 from ..core.lattice import D2Q9, D3Q19, Lattice
 from ..core.stencil import grad_of_laplacian, isotropic_gradient
 from ..core.streaming import stream_bounce_back
@@ -65,12 +66,6 @@ def _per_k(w, ndim):
     return w.reshape((w.shape[0],) + (1,) * ndim)
 
 
-def _consts(lattice: Lattice, like):
-    w = torch.as_tensor(lattice.w, dtype=like.dtype, device=like.device)
-    c = torch.as_tensor(lattice.c, dtype=like.dtype, device=like.device)
-    return w, c
-
-
 def macro_2d(f, g, fluid, p: HCZParams, lattice: Lattice = D2Q9):
     """Materialised fields of the 2D scheme:
     ``(φ, ρ, u, P, F, ∇ψρ, ∇ψφ)`` (reference velocity :316-337, total_P
@@ -91,7 +86,7 @@ def macro_2d(f, g, fluid, p: HCZParams, lattice: Lattice = D2Q9):
     Fy = p.kappa * rho * glap_phi[1] + p.gravity * rho
     F = torch.stack([Fx, Fy], dim=0)
 
-    _, c = _consts(lattice, f)
+    _, c = lattice_tensors(lattice, f)
     mom = torch.einsum("kd,k...->d...", c, g)
     u = (mom + F / 6.0) / (rho / 3.0)[None]
 
@@ -116,7 +111,7 @@ def macro_3d(f, g, fluid, p: HCZParams, lattice: Lattice = D3Q19):
     Fz = p.kappa * phi * glap_phi[2]
     F = torch.stack([Fx, Fy, Fz], dim=0)
 
-    _, c = _consts(lattice, f)
+    _, c = lattice_tensors(lattice, f)
     mom = torch.einsum("kd,k...->d...", c, g)
     u = (mom + F / 6.0) / (rho / 3.0)[None]
 
@@ -131,7 +126,7 @@ def _collide_stream(f, g, fluid, p, lattice, macro, phase_divisor):
     """Shared collision (equilibria, Guo-type forcing, BGK) and bounce-back
     streaming of both distributions; ``phase_divisor`` picks φ (2D) or ρ
     (3D) as the phase forcing's divisor."""
-    w, c = _consts(lattice, f)
+    w, c = lattice_tensors(lattice, f)
     ndim = fluid.ndim
     phi, rho, u, P, F, gpsi_rho, gpsi_phi = macro(f, g, fluid, p, lattice)
     wk = _per_k(w, ndim)

@@ -39,6 +39,12 @@ ENTRY_POINTS = {
     # f, g, fo, go, phi, lap, P, nz, ny, nx, consts, stream
     "hcz3d_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
     "hcz3d_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    # h, g, u, ho, go, uo, phi, ny, nx, fresh_phi, consts, stream
+    "fakhari_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    "fakhari_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    # f, out, psi, ny, nx, consts, stream
+    "scrt_step_f32": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
+    "scrt_step_f64": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
 }
 
 _lib = None

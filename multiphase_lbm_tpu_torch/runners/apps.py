@@ -1,27 +1,33 @@
 """Per-problem drivers, schema-compatible with the reference app modules.
 
-Port of the Shan–Chen and HCZ drivers of ``multiphase_lbm_tpu/runners/apps.py``
-(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``run_rayleigh_taylor_pf``,
-``run_two_layered_pf``, ``run_laplace3d``).  Each reads the reference's
+Port of the Shan–Chen, HCZ, Fakhari and SC Rayleigh–Taylor runners of
+``multiphase_lbm_tpu/runners/apps.py`` (``run_sc_laplace2d``,
+``run_sc_contact_angle``, ``run_young_laplace2d``, ``run_rayleigh_taylor_pf``,
+``run_two_layered_pf``, ``run_laplace3d``, ``run_rayleigh_taylor_sc``).
+Each reads the reference's
 ``config_*.txt`` keys, runs the solver in chunks of the output cadence and
 emits the same observables: ``sol_*.vtk`` with the module's field list,
 ``energy.dat`` / ``mass.dat`` / ``contact_angle.dat`` /
 ``spike_bubble_position.dat`` / ``spike_bubble_velocity.dat`` /
 ``density_probe.dat`` and the final MLUPS line.  State on a CUDA device
 advances through the fused kernels (:mod:`..ops.sc_fused`,
-:mod:`..ops.hcz_fused`, :mod:`..ops.hcz3d_fused`); state on the CPU through
-the plain model functions.  The HCZ drivers keep the lattice of the JAX
-XLA path (no 8-row padding), so VTK dimensions and the MLUPS element count
-match the JAX CLI without ``--fused``.
+:mod:`..ops.hcz_fused`, :mod:`..ops.hcz3d_fused`, :mod:`..ops.fakhari_fused`,
+:mod:`..ops.scrt_fused`); state on the CPU through the plain model
+functions.  The runners keep the lattice and the dtype of the JAX XLA path
+(no 8-row padding, no forced float32), so VTK dimensions and the MLUPS
+element count match the JAX CLI without ``--fused``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..io.config import lb_parameters, load_config, omega_from_tau
+from ..models import fakhari as fk
 from ..models import hcz
 from ..models import shan_chen as sc
-from ..ops import hcz3d_fused, hcz_fused, sc_fused
+from ..models import shan_chen_rt as rt
+from ..ops import fakhari_fused, hcz3d_fused, hcz_fused, sc_fused, scrt_fused
 from .common import Driver, next_chunk
 
 
@@ -124,6 +130,40 @@ def _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact, periodic):
         it += chunk
     _finish(drv, f)
     return f
+
+
+# ─── Fakhari Young-Laplace (reference Young_Laplace2D.h :456-568) ──────────
+def run_young_laplace2d(config, outdir, dtype=torch.float64, max_steps=None,
+                        *, device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 128)
+    p = fk.FakhariParams(
+        sigma=_num(cfg, "Sigma", 0.01), W=_num(cfg, "W", 4.0),
+        M=_num(cfg, "M", 0.02), rhol=_num(cfg, "RhoL", 0.001),
+        rhoh=_num(cfg, "RhoH", 1.0), tau=_num(cfg, "tau", 0.8))
+    state = fk.init_bubble(N, N, p, dtype=dtype, device=device)
+    steps = max_steps or _int(cfg, "tf", 10000)
+    drv = Driver(outdir, N * N, out_freq=_int(cfg, "out_freq", 1000),
+                 vtk_freq=_int(cfg, "vtk_freq", 1000))
+    flag = np.zeros((N, N), int)
+    it = 0
+    # the reference's loop runs to it == steps inclusive, one step past it
+    while it <= steps:
+        if drv.want_vtk(it):
+            drv.write_vtk(it, N, N,
+                          scalars=[("phi", fk.phase_field(state)),
+                                   ("Pressure", fk.pressure(state))],
+                          vectors=[("velocity", state[2])],
+                          int_scalars=[("Flag", flag)])
+        if drv.want_out(it):
+            drv.log_file("energy.dat").log(it, float(fk.kinetic_energy(state)))
+            drv.log_file("mass.dat").log(it, float(fk.total_mass(state, p)))
+        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+        state = fakhari_fused.run_fused(*state, p, chunk)
+        drv.clock.tick(chunk)
+        it += chunk
+    _finish(drv, state[0])
+    return state
 
 
 def _hcz_params(cfg, omega, kappa, **extra):
@@ -255,6 +295,46 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
         it += chunk
     _finish(drv, state[0])
     return state
+
+
+# ─── SC Rayleigh-Taylor (reference SC RayleighTaylor2D.h :578-670) ─────────
+def run_rayleigh_taylor_sc(config, outdir, dtype=torch.float64, max_steps=None,
+                           *, device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 128)
+    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
+                                      _num(cfg, "Re", 30.72))
+    p = rt.SCRTParams(
+        omega=omega, rhol=_num(cfg, "rhol", 1.2), rhog=_num(cfg, "rhog", 0.4),
+        g=_num(cfg, "g", -5.0), gravity=_num(cfg, "gravity", -1.25e-5))
+    nx, ny = N, 4 * N + 2     # reference dim {N, 4N+2} (RayleighTaylor2D.h:622)
+    fluid = rt.geometry_channel(nx, ny, device=device)
+    f = rt.init_interface(nx, ny, p, dtype=dtype, device=device) * fluid[None]
+    steps = max_steps or int(_num(cfg, "max_t", 50.01) / dt)
+    drv = Driver(outdir, nx * ny, out_freq=_int(cfg, "out_freq", 100),
+                 vtk_freq=_int(cfg, "vtk_freq", 100))
+    flag = _flag(fluid)
+    fluid_host = fluid.cpu().numpy()
+    it = 0
+    while it < steps:
+        if drv.want_vtk(it):
+            drv.write_vtk(it, nx, ny, spacing=dx,
+                          scalars=[("Density", rt.density(f))],
+                          int_scalars=[("Flag", flag)])
+        if drv.want_out(it):
+            e = float(rt.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
+            drv.log_file("energy.dat").log(it * dt, e)
+            rho = rt.density(f)
+            drv.log_file("mass.dat").log(it * dt, float((rho * fluid).sum()))
+            s, bub = rt.interface_height(rho.cpu().numpy(), fluid_host, p)
+            drv.log_file("spike_bubble_position.dat").log(
+                it * dt, s * dx, bub * dx)
+        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+        f = scrt_fused.run_fused(f, p, chunk)
+        drv.clock.tick(chunk)
+        it += chunk
+    _finish(drv, f)
+    return f
 
 
 def _finish(drv, f):

@@ -4,8 +4,8 @@
         [--config config.txt] [--outdir out] [--steps N] [--f32] \
         [--device cuda|cpu]
 
-Ported problems: laplace2D_sc, contactAngle2D, rayleighTaylor2D,
-twoLayeredFlow2D, laplace3D.  The JAX CLI's other problems are named so
+Ported problems: laplace2D_sc, contactAngle2D, RayleighTaylor2D_sc,
+Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D.  The JAX CLI's other problems are named so
 that asking for one says which ROADMAP.md item brings it.  The device
 defaults to ``cuda``, where the solver runs the fused CUDA kernels (there
 is no ``--fused`` flag: on the card the kernel is the path).  The plain
@@ -26,6 +26,9 @@ from . import apps
 PROBLEMS = {
     "laplace2D_sc": (apps.run_sc_laplace2d, "sc_Laplace2D.txt"),
     "contactAngle2D": (apps.run_sc_contact_angle, "sc_contactAngle2D.txt"),
+    "RayleighTaylor2D_sc": (apps.run_rayleigh_taylor_sc,
+                            "sc_RayleighTaylor2D.txt"),
+    "Young_Laplace2D": (apps.run_young_laplace2d, "young_laplace2D.txt"),
     "rayleighTaylor2D": (apps.run_rayleigh_taylor_pf, "pf_rayleighTaylor2D.txt"),
     "twoLayeredFlow2D": (apps.run_two_layered_pf, "pf_twoLayeredFlow2D.txt"),
     "laplace3D": (apps.run_laplace3d, "pf_laplace3D.txt"),
@@ -34,8 +37,6 @@ PROBLEMS = {
 # problem of the JAX CLI -> the ROADMAP.md item that ports it
 NOT_PORTED = {
     "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
-    "RayleighTaylor2D_sc": "Queue A item 7 (models/shan_chen_rt.py)",
-    "Young_Laplace2D": "Queue A item 6 (models/fakhari.py)",
     "PulsatileBloodFlow2D": "Queue A item 9 (models/pulsatile.py)",
     "combustion": "Queue A item 10 (models/combustion.py)",
 }

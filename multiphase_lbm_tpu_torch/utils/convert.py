@@ -1,7 +1,8 @@
 """Carry parameters and state from the JAX package to the port.
 
 Both sides exchange plain Python and numpy values, so nothing here imports
-jax: a caller holding a JAX ``SCParams`` or ``HCZParams`` passes
+jax: a caller holding a JAX ``SCParams``, ``HCZParams``, ``FakhariParams``
+or ``SCRTParams`` passes
 ``dataclasses.asdict`` of it, and JAX arrays as ``np.asarray`` copies.
 """
 from __future__ import annotations
@@ -9,8 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.fakhari import FakhariParams
 from ..models.hcz import HCZParams
 from ..models.shan_chen import SCParams
+from ..models.shan_chen_rt import SCRTParams
 
 
 def params_from_jax(d: dict) -> SCParams:
@@ -23,6 +26,18 @@ def hcz_params_from_jax(d: dict) -> HCZParams:
     """The port's ``HCZParams`` from ``dataclasses.asdict`` of the JAX one
     (same fields; an unknown key raises)."""
     return HCZParams(**d)
+
+
+def fakhari_params_from_jax(d: dict) -> FakhariParams:
+    """The port's ``FakhariParams`` from ``dataclasses.asdict`` of the JAX
+    one (same fields; an unknown key raises)."""
+    return FakhariParams(**d)
+
+
+def scrt_params_from_jax(d: dict) -> SCRTParams:
+    """The port's ``SCRTParams`` from ``dataclasses.asdict`` of the JAX one
+    (same fields; an unknown key raises)."""
+    return SCRTParams(**d)
 
 
 def state_from_numpy(f_np, fluid_np, device, dtype=torch.float64):
@@ -39,3 +54,10 @@ def hcz_state_from_numpy(f_np, g_np, fluid_np, device, dtype=torch.float64):
     f, fluid = state_from_numpy(f_np, fluid_np, device, dtype)
     g = torch.as_tensor(np.array(g_np), dtype=dtype, device=device)
     return (f, g), fluid
+
+
+def fakhari_state_from_numpy(h_np, g_np, u_np, device, dtype=torch.float64):
+    """The Fakhari state ``(h, g, u)`` on ``device`` in ``dtype``: the two
+    distributions ``(9, ny, nx)`` and the velocity ``(2, ny, nx)``."""
+    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in (h_np, g_np, u_np))

@@ -38,6 +38,11 @@ from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
 from multiphase_lbm_tpu_torch.validation import rti_reference as tref
 from multiphase_lbm_tpu_torch.validation import rti_regression as trr
 
+# The tier-1 command runs six xdist workers; with one intra-op thread
+# per core in each, PyTorch's pools spin against each other (a plain HCZ
+# step measured 2,180 ms against 19 ms with one thread per worker).
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 DATA = pathlib.Path(__file__).parent.parent / "multiphase_lbm_tpu" / \
     "validation" / "data"

@@ -21,6 +21,11 @@ from multiphase_lbm_tpu_torch.ops import hcz3d_fused
 from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
                                                     hcz_state_from_numpy)
 
+# The tier-1 command runs six xdist workers; with one intra-op thread
+# per core in each, PyTorch's pools spin against each other (a plain HCZ
+# step measured 2,180 ms against 19 ms with one thread per worker).
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N = 16
 
