@@ -60,19 +60,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      --f32 --steps 200 (config N = 128) writes sol_0000000.vtk,
      sol_0000100.vtk, energy.dat, mass.dat, spike_bubble_position.dat and
      its MLUPS line.
+ 12. pulsatile main path — bench --model pulsatile at N = 384 (3,821 × 384,
+     wall compliance scaled to the size, 4N warm-up steps through
+     pulsatile_step, slope 100/300; N >= 512 goes non-finite in the opening
+     transient) and at the reference's N = 64 (621 × 64, slope 500/1500),
+     each beside its plain path (2/6); state finite, fluid share > 0.5 at
+     N = 384.  After these timed runs, three worker processes run the plain
+     paths behind the gates while this process runs coolbm
+     PulsatileBloodFlow2D --f32 --steps 300 (its 101 dumps, sol_0000000.vtk,
+     sol_0000150.vtk, sol_0000300.vtk, ..., and its MLUPS line through
+     pulsatile_step) and the kernel's runs of the full-run gate
+     (validation.pulsatile_fullrun: the 2765-step reference case through
+     pulsatile_step at float32, and eight runs of it perturbed by an ulp,
+     against the plain path's float64 run: the medians of the GATED_F32
+     metrics within GATES_F32, every run's phase lag within ±1 dump;
+     order-dependent reseed steps <= 12, reseeded cells > 0; then the
+     self-check: eight float64 runs perturbed by an ulp keep the gated
+     metrics within half their gates against the unperturbed one); the
+     workers' quirk-free physics gates through the plain path
+     (validation.womersley: module channel steady < 0.04, shape < 0.15,
+     budget < 0.20; core channel steady < 0.003, oscillatory < 0.02).
 In phase 3 also: fakhari_step on the 128² bubble at τ = 0.8 and 0.55,
 float32 over 5 steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps
 (atol 1e-12), and 2048² float32, 5 steps; scrt_step on the 128 × 514
 channel at ω = 1 and 1.25, float32 over 5 steps (rtol 2e-5, atol 2e-6) and
-float64 over 20 steps (atol 1e-12), and 2048 × 8194 float32, 5 steps.
+float64 over 20 steps (atol 1e-12), and 2048 × 8194 float32, 5 steps;
+pulsatile_step at N = 64 from a 4-step warm state, one step in float32 (g,
+P, U within 5e-7, yr 5e-5, F 1e-4: the Pallas test's tolerances) and in
+float64 (atol 1e-12, identical fluid maps), 27 float64 steps (steps 2-28,
+which hold no order-dependent reseed step; atol 1e-10, identical fluid
+maps), and one float32 step at N = 384 from the bench's warmed state.
 Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 6-8, 9, 10, 11) and read just after.  Then one JSON line with
+(phases 4-5, 6-8, 9, 10, 11, 12) and read just after.  Then one JSON line with
 every kernel of the paths and, last, {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -87,6 +114,9 @@ HCZ_F32_TOL = dict(rtol=3e-5, atol=3e-6)
 HCZ3D_F32_TOL = dict(rtol=5e-5, atol=5e-6)
 FAKHARI_F32_TOL = dict(rtol=5e-5, atol=5e-6)
 SCRT_F32_TOL = dict(rtol=2e-5, atol=2e-6)
+# pulsatile_step against the plain path, by field (tests/test_pallas_pulsatile_full.py)
+PULSATILE_F32_TOL = {"g_coll": 5e-7, "g_stream": 5e-7, "P": 5e-7, "Ux": 5e-7,
+                     "Uy": 5e-7, "F": 1e-4, "yr1": 5e-5, "yr2": 5e-5}
 
 # H100 SXM data sheet: 3.35 TB/s of device memory, 67 TFLOP/s float32
 # outside the tensor cores (the kernels use none).
@@ -100,10 +130,15 @@ F32_FLOP_PER_S = 67e12
 # reads and writes 2 × 19 populations; fakhari_step reads and writes h, g
 # (2 × 9) and u (2), and forms the fields, the stress and the force twice
 # (before the collision and after the streaming); scrt_step reads and writes
-# 9 populations (the walls follow from the row index).
+# 9 populations (the walls follow from the row index); pulsatile_step reads
+# g_coll at fluid cells or g_stream at solid ones and the macros, and writes
+# gout, g2 and the macros (132 B), with about 260 operations in the
+# collision (equilibrium, the 9 × 9 moment product), 55 in the streamed
+# sums and 15 in the geometry (the Bouzidi links and the reseed touch O(nx)
+# cells).
 WORK_PER_CELL = {"sc_step": (72, 200), "hcz_step": (148, 600),
                  "hcz3d_step": (304, 1300), "fakhari_step": (160, 750),
-                 "scrt_step": (72, 300)}
+                 "scrt_step": (72, 300), "pulsatile_step": (132, 330)}
 
 
 def bound(name, cells):
@@ -151,8 +186,9 @@ def compare(name, out, ref, tol, failures):
 
 
 def run_cli(coolbm, argv, expected):
-    """coolbm ``argv`` into a temporary directory: returns its output after
-    checking the exit code, the MLUPS line and the ``expected`` files."""
+    """coolbm ``argv`` into a temporary directory: returns the files it
+    wrote after checking the exit code, the MLUPS line and the ``expected``
+    files."""
     with tempfile.TemporaryDirectory() as tmp:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -164,6 +200,19 @@ def run_cli(coolbm, argv, expected):
         for name in expected:
             check(name in produced, f"{name} not in {produced}")
         check("MLUPS" in buf.getvalue(), f"no MLUPS line from {argv}")
+        return produced
+
+
+def timed(module, name, **kwargs):
+    """``(result, seconds)`` of ``name(**kwargs)`` of a validation module:
+    a task of the worker processes of phase 12."""
+    import importlib
+
+    t0 = time.perf_counter()
+    fn = getattr(importlib.import_module(
+        f"multiphase_lbm_tpu_torch.validation.{module}"), name)
+    out = fn(**kwargs)
+    return out, time.perf_counter() - t0
 
 
 def main():
@@ -185,13 +234,17 @@ def main():
     from multiphase_lbm_tpu_torch import bench
     from multiphase_lbm_tpu_torch.models import fakhari as fk
     from multiphase_lbm_tpu_torch.models import hcz
+    from multiphase_lbm_tpu_torch.models import pulsatile as pm
     from multiphase_lbm_tpu_torch.models import shan_chen as sc
     from multiphase_lbm_tpu_torch.models import shan_chen_rt as rt
     from multiphase_lbm_tpu_torch.ops import _build, hcz3d_fused, hcz_fused
     from multiphase_lbm_tpu_torch.ops import fakhari_fused, sc_fused, scrt_fused
+    from multiphase_lbm_tpu_torch.ops import pulsatile_fused
     from multiphase_lbm_tpu_torch.runners import coolbm
     from multiphase_lbm_tpu_torch.validation import rti_regression
+    from multiphase_lbm_tpu_torch.validation import pulsatile_fullrun
     from multiphase_lbm_tpu_torch.validation import scrt_reference
+    from multiphase_lbm_tpu_torch.validation import womersley
 
     # ---- 2. build ----
     _build.build()
@@ -323,6 +376,48 @@ def main():
     err_scrt = compare(f"scrt_step channel {n}x{4 * n + 2} omega=1.0 float32 "
                        "5 steps", out, ref, SCRT_F32_TOL, failures)
     del f, fluid, out, ref
+
+    def pulsatile_case(name, out, ref, tol):
+        """One pulsatile_step-against-plain line: every field within its
+        tolerance (a dict by field, or one atol) and identical fluid maps."""
+        torch.cuda.synchronize()
+        errs = {k: float((getattr(out, k).double() - getattr(ref, k).double())
+                         .abs().max()) for k in PULSATILE_F32_TOL}
+        same = bool(torch.equal(out.fluid, ref.fluid))
+        lim = tol if isinstance(tol, dict) else dict.fromkeys(errs, tol)
+        ok = same and all(errs[k] < lim[k] for k in errs)
+        say(f"[kernel vs plain] pulsatile_step {name}: max abs err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; fluid maps {'identical' if same else 'DIFFER'} "
+            f"(tolerance {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"pulsatile_step {name}")
+        return max(errs[k] for k in ("g_coll", "g_stream", "P", "Ux", "Uy"))
+
+    pp = pm.PulsatileParams(nx=621, ny=64)
+    for dtype, tol in ((torch.float32, PULSATILE_F32_TOL),
+                       (torch.float64, 1e-12)):
+        st = pm.run(pm.initialize(pp, dtype, device=dev), 0, pp, 4)
+        ref, (n_dep, n_cells) = pm.run_with_diag(st, 4, pp, 1)
+        out, diag = pulsatile_fused.run_fused_full(st, 4, pp, 1)
+        pulsatile_case(f"621x64 {str(dtype)[6:]} 1 step from step 4", out, ref,
+                       tol)
+        check(diag.tolist() == [0, n_cells] and n_dep == 0,
+              f"pulsatile diag {diag.tolist()} against the plain path's "
+              f"{[n_dep, n_cells]}")
+    st = pm.run(pm.initialize(pp, torch.float64, device=dev), 0, pp, 2)
+    ref, (n_dep, _) = pm.run_with_diag(st, 2, pp, 27)
+    out, diag = pulsatile_fused.run_fused_full(st, 2, pp, 27)
+    check(n_dep == 0 and int(diag[0]) == 0,
+          "an order-dependent reseed step in the 27-step window")
+    pulsatile_case("621x64 float64 27 steps (steps 2-28)", out, ref, 1e-10)
+    pbig, st, t_big = bench.pulsatile_warm_state(384, dev)
+    ref = pm.run(st, t_big, pbig, 1)
+    out, _ = pulsatile_fused.run_fused_full(st, t_big, pbig, 1)
+    err_pulsatile = pulsatile_case(
+        f"{pbig.nx}x{pbig.ny} float32 1 step from the bench's warm state",
+        out, ref, PULSATILE_F32_TOL)
+    del st, ref, out
     if failures:
         raise SystemExit(f"kernel disagrees with the plain path: {failures}")
 
@@ -510,6 +605,93 @@ def main():
     check(scrt_fused.LAUNCHES > before_cli,
           "the RayleighTaylor2D_sc CLI did not launch the kernel")
 
+    # ---- 12. pulsatile main path ----
+    recs_pl = {}
+    for size in (384, 64):
+        rec_p, rd, _ = bench.run(model="pulsatile", size=size, steps=2,
+                                 steps2=6, plain=True)
+        say(f"[bench pulsatile {size} plain] {json.dumps(rec_p)}")
+        check(rd.valid, rec_p)
+        recs_pl[size] = [rec_p]
+        del rd
+    pulsatile_fused.LAUNCHES = 0       # count the pulsatile path's launches only
+    for size, a, b in ((384, 100, 300), (64, 500, 1500)):
+        rec_k, rd, st0 = bench.run(model="pulsatile", size=size, steps=a,
+                                   steps2=b)
+        say(f"[bench pulsatile {size} kernel] {json.dumps(rec_k)}")
+        check(rd.valid, rec_k)
+        check(all(bool(torch.isfinite(t).all()) for t in rd.out
+                  if t.is_floating_point()), "non-finite pulsatile state")
+        recs_pl[size].insert(0, rec_k)
+        say(f"[main path] kernel {rec_k['value']:.1f} MLUPS "
+            f"({rec_k['ms_per_step']:.4f} ms per step) vs plain "
+            f"{recs_pl[size][1]['value']:.3f} MLUPS "
+            f"({recs_pl[size][1]['ms_per_step']:.2f} ms per step) at the "
+            f"pulsatile vessel N={size}, fluid share {rec_k['fluid_share']:.3f},"
+            f" on {card}")
+        del rd, st0
+    check(recs_pl[384][0]["fluid_share"] > 0.5,
+          f"the N=384 vessel is not open: {recs_pl[384][0]['fluid_share']}")
+    check(pulsatile_fused.LAUNCHES > 0, "the pulsatile bench did not launch "
+          "the kernel")
+    # The plain runs behind the gates are bound by the host (hundreds of
+    # small launches a step): after the last timed phase they run in worker
+    # processes, beside the CLI and the kernel's full runs here.
+    t_pool = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        fut_ref = pool.submit(timed, "pulsatile_fullrun", "reference_metrics",
+                              device="cuda")
+        fut_mod = pool.submit(timed, "womersley", "run_module_validation",
+                              device="cuda", verbose=False)
+        fut_core = pool.submit(timed, "womersley", "run_validation",
+                               device="cuda", verbose=False)
+        before_cli = pulsatile_fused.LAUNCHES
+        t0 = time.perf_counter()
+        produced = run_cli(coolbm, ["PulsatileBloodFlow2D", "--f32", "--steps",
+                                    "300"],
+                           ("sol_0000000.vtk", "sol_0000150.vtk",
+                            "sol_0000300.vtk"))
+        check(sum(n.startswith("sol_") for n in produced) == 101,
+              "PulsatileBloodFlow2D --steps 300 did not write 101 dumps")
+        check(pulsatile_fused.LAUNCHES > before_cli,
+              "the PulsatileBloodFlow2D CLI did not launch the kernel")
+        say(f"[cli] PulsatileBloodFlow2D {time.perf_counter() - t0:.1f} s")
+        # the main path ends here; the gate's runs hold the kernel to the
+        # plain path and are not counted
+        pulsatile_launches = pulsatile_fused.LAUNCHES
+        t0 = time.perf_counter()
+        sims32, diag = pulsatile_fullrun.kernel_runs("f32", device=dev)
+        sims64, _ = pulsatile_fullrun.kernel_runs("f64", device=dev)
+        secs = time.perf_counter() - t0
+        reference, secs_ref = fut_ref.result()
+        ok, _ = pulsatile_fullrun.run_gate(sims32, diag, reference)
+        say(f"[full run] N=64 2765 steps: kernel {len(sims32)} float32 and "
+            f"{len(sims64)} float64 runs {secs:.1f} s, plain float64 "
+            f"{secs_ref:.1f} s (worker); order-dependent steps "
+            f"{diag['order_dep_steps']}, reseeded cells "
+            f"{diag['reseed_cells']} ({'PASS' if ok else 'FAIL'})")
+        check(ok, "the pulsatile full run departs from the float64 plain run")
+        premise, _ = pulsatile_fullrun.self_check(sims64, reference)
+        say(f"[full run] self-check: the gated metrics of "
+            f"{len(sims64) - 1} float64 runs perturbed by an ulp within half "
+            f"their gates ({'PASS' if premise else 'FAIL'})")
+        check(premise, "a gated full-run metric is chaotic")
+        errs, secs_mod = fut_mod.result()
+        (err_s, err_o), secs_core = fut_core.result()
+    say(f"[physics] quirk-free module channel 61x24 ({secs_mod:.1f} s, "
+        "worker): " + ", ".join(
+            f"{k} {v:.4f} (< {womersley.MODULE_GATES[k]})"
+            for k, v in errs.items())
+        + f"; core channel ({secs_core:.1f} s, worker): steady {err_s:.5f} "
+        f"(< {womersley.GATE_STEADY}), oscillatory {err_o:.5f} "
+        f"(< {womersley.GATE_OSC}); gates and CLI together "
+        f"{time.perf_counter() - t_pool:.1f} s")
+    check(all(errs[k] < womersley.MODULE_GATES[k] for k in errs),
+          f"the module channel misses its gates: {errs}")
+    check(err_s < womersley.GATE_STEADY and err_o < womersley.GATE_OSC,
+          f"the core channel misses its gates: {err_s}, {err_o}")
+
     def entry(name, source, replaces, launches, err, rec_k, rec_p, cells):
         bound_ms, bound_by = bound(name, cells)
         return {"name": name, "route": "cuda",
@@ -534,6 +716,10 @@ def main():
         entry("scrt_step", "scrt_step.cu",
               "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_fused.LAUNCHES,
               err_scrt, rec_rt, rec_rt_plain, n * (4 * n + 2)),
+        entry("pulsatile_step", "pulsatile_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
+              pulsatile_launches, err_pulsatile, *recs_pl[384],
+              pbig.nx * pbig.ny),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

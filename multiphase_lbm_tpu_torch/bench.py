@@ -19,9 +19,28 @@ kernels:
 * ``scrt``: the Shan–Chen Rayleigh–Taylor channel at the reference's
   {N, 4N + 2} domain, 2048 × 8194 (walls at y = 0 and y = ny − 1), with the
   ``SCRTParams`` defaults (``configs/sc_RayleighTaylor2D.txt`` physics at
-  N = 128, ω = 1), float32, kernel ``csrc/scrt_step.cu``.
+  N = 128, ω = 1), float32, kernel ``csrc/scrt_step.cu``;
+* ``pulsatile``: the severed deformable vessel of the reference's
+  PulsatileBloodFlow2D at nx = 1 + 10 (N − 2), ny = N, in the reference
+  parity mode, float32, kernel ``csrc/pulsatile_step.cu``, with one
+  departure from the reference: the wall compliance is scaled to the size,
+  α = 0.01 · 64/N (:func:`pulsatile_params`).  ``--size 384`` (the
+  default, 3,821 × 384, 1.47 M cells, 124 MB of state, 2.5 times the L2)
+  is the largest size seen to stay finite through the warm-up.  N = 512
+  stayed finite through 4N steps while the plain path and the kernel took
+  the JAX model's dense MRT, and goes non-finite in the opening transient
+  (by step 416) since both take the Pallas kernel's low-rank form, which
+  rounds differently: the transient is at the edge of stability there.
+  N = 768 and 1024 go non-finite by step 192 in either form.  ``--size
+  64`` is the reference's own case (621 × 64), whose state fits in L2, so
+  launches set its pace.  The vessel starts closed at the inlet and its
+  walls open by at most 0.25 rows a step, so the state is first warmed
+  through the kernel for 4N steps (:func:`pulsatile_warm_state`, which
+  names the step where a size goes non-finite) and the slope times the
+  open vessel; the JSON line carries the warm-up's steps, α and the warmed
+  state's fluid share.
 
-    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d|fakhari|scrt]
+    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d|fakhari|scrt|pulsatile]
         [--size N] [--steps 200] [--steps2 600] [--collision mrt] [--plain]
         [--reps 3] [--profile STEPS]
 
@@ -48,14 +67,16 @@ import torch
 from .io.config import lb_parameters
 from .models import fakhari as fk
 from .models import hcz
+from .models import pulsatile as pm
 from .models import shan_chen as sc
 from .models import shan_chen_rt as rt
-from .ops import fakhari_fused, hcz3d_fused, hcz_fused, sc_fused, scrt_fused
+from .ops import (fakhari_fused, hcz3d_fused, hcz_fused, pulsatile_fused,
+                  sc_fused, scrt_fused)
 from .utils.profiling import device_profile, measure_mlups_slope
 from .validation.rti_regression import rti_state
 
 DEFAULT_SIZE = {"sc": 2048, "rti": 2048, "hcz3d": 128, "fakhari": 2048,
-                "scrt": 2048}
+                "scrt": 2048, "pulsatile": 384}
 
 
 def card_name_and_power() -> str:
@@ -73,8 +94,37 @@ def hcz3d_params() -> hcz.HCZParams:
     return hcz.HCZParams(omega=omega, kappa=5e-4)
 
 
+def pulsatile_params(n):
+    """The reference vessel at ny = n: nx = 1 + 10 (n − 2), and the wall
+    compliance α = 0.01 · 64/n, a departure from the reference, which takes
+    α = 0.01 at every size.  The closed vessel's initial pressure is
+    (yr2 − (n − 1.5))·α + 0.02 ≈ (1 + R − n/2)·α + 0.02, R ≤ 2 the
+    vessel's radius: −0.29 to −0.27 at the reference's n = 64, but about
+    −1.2 at n = 256 and −5.1 at n = 1024 with α = 0.01; the scaled α keeps
+    it near the reference's −0.3 at every size."""
+    return pm.PulsatileParams(nx=1 + 10 * (n - 2), ny=n,
+                              alpha=0.01 * 64 / n)
+
+
+def pulsatile_warm_state(n, device):
+    """``(params, state, t)``: the vessel after 4n steps through the kernel
+    (its walls open by at most 0.25 rows a step, so the severed inlet needs
+    2n steps at least to open), float32.  Raises, naming the first block of
+    n/16 steps that ended non-finite, if the vessel does not stay finite."""
+    p = pulsatile_params(n)
+    st = pm.initialize(p, torch.float32, device=device)
+    block = max(1, n // 16)
+    for t in range(0, 4 * n, block):
+        st, _ = pulsatile_fused.run_fused_full(st, t, p, block)
+        if not bool(torch.isfinite(st.P).all()):
+            raise RuntimeError(f"the N={n} vessel went non-finite by step "
+                               f"{t + block} of its {4 * n}-step warm-up")
+    return p, st, 4 * n
+
+
 def _case(model, n, collision, plain, device):
-    """``(state0, make_step, nelem, metric)`` of one benchmark."""
+    """``(state0, make_step, nelem, metric, extra)`` of one benchmark;
+    ``extra`` holds keys for its JSON line."""
     label = "plain_PyTorch" if plain else "CUDA"
     if model == "sc":
         p = sc.SCParams(collision=collision)
@@ -90,7 +140,7 @@ def _case(model, n, collision, plain, device):
                 return lambda v: sc_fused.run_fused(v, fluid_f32, p, ns,
                                                     periodic=True)
         return (f0, make_step, n * n,
-                f"MLUPS_D2Q9_{collision.upper()}_ShanChen_{n}x{n}_{label}")
+                f"MLUPS_D2Q9_{collision.upper()}_ShanChen_{n}x{n}_{label}", {})
     if model == "rti":
         p, state0, fluid = rti_state(n, device)
         fluid_f32 = fluid.to(torch.float32)
@@ -101,7 +151,8 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda s: hcz_fused.run_fused(*s, fluid_f32, p, ns)
         ny = 4 * n + 2
-        return state0, make_step, n * ny, f"MLUPS_D2Q9_HCZ_RTI_{n}x{ny}_{label}"
+        return (state0, make_step, n * ny,
+                f"MLUPS_D2Q9_HCZ_RTI_{n}x{ny}_{label}", {})
     if model == "hcz3d":
         p = hcz3d_params()
         state0 = hcz.init_droplet_3d(n, n, n, p, dtype=torch.float32,
@@ -115,7 +166,7 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda s: hcz3d_fused.run_fused_3d(*s, p, ns)
         return (state0, make_step, n ** 3,
-                f"MLUPS_D3Q19_HCZ_droplet_{n}^3_{label}")
+                f"MLUPS_D3Q19_HCZ_droplet_{n}^3_{label}", {})
     if model == "fakhari":
         p = fk.FakhariParams()
         state0 = fk.init_bubble(n, n, p, dtype=torch.float32, device=device)
@@ -126,7 +177,7 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda s: fakhari_fused.run_fused(*s, p, ns)
         return (state0, make_step, n * n,
-                f"MLUPS_D2Q9_Fakhari_bubble_{n}x{n}_{label}")
+                f"MLUPS_D2Q9_Fakhari_bubble_{n}x{n}_{label}", {})
     if model == "scrt":
         p = rt.SCRTParams()
         ny = 4 * n + 2
@@ -139,7 +190,21 @@ def _case(model, n, collision, plain, device):
         else:
             def make_step(ns):
                 return lambda v: scrt_fused.run_fused(v, p, ns)
-        return f0, make_step, n * ny, f"MLUPS_D2Q9_SCRT_{n}x{ny}_{label}"
+        return (f0, make_step, n * ny, f"MLUPS_D2Q9_SCRT_{n}x{ny}_{label}",
+                {})
+    if model == "pulsatile":
+        p, state0, t0 = pulsatile_warm_state(n, device)
+        if plain:
+            def make_step(ns):
+                return lambda s: pm.run(s, t0, p, ns)
+        else:
+            def make_step(ns):
+                return lambda s: pulsatile_fused.run_fused_full(s, t0, p,
+                                                                ns)[0]
+        return (state0, make_step, p.nx * p.ny,
+                f"MLUPS_D2Q9_MRT_pulsatile_{p.nx}x{p.ny}_{label}",
+                {"warmup_steps": t0, "alpha": p.alpha,
+                 "fluid_share": float(state0.fluid.float().mean())})
     raise ValueError(f"unknown model {model!r}")
 
 
@@ -149,12 +214,12 @@ def run(size=None, steps=200, steps2=None, collision="mrt", plain=False,
     where ``reading.out`` is the state after the last timed call and
     ``state0`` the initial state it started from (a tensor for ``sc`` and
     ``scrt``, an ``(f, g)`` pair for the HCZ models, ``(h, g, u)`` for
-    ``fakhari``)."""
+    ``fakhari``, a ``PulsatileState`` for ``pulsatile``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     n = size or DEFAULT_SIZE[model]
-    state0, make_step, nelem, metric = _case(model, n, collision, plain,
-                                             torch.device("cuda"))
+    state0, make_step, nelem, metric, extra = _case(
+        model, n, collision, plain, torch.device("cuda"))
     steps2 = 3 * steps if steps2 is None else steps2
     reading = measure_mlups_slope(make_step, state0, steps, steps2, nelem,
                                   reps=reps)
@@ -172,6 +237,7 @@ def run(size=None, steps=200, steps2=None, collision="mrt", plain=False,
         "device": torch.cuda.get_device_name(0),
         "card": card_name_and_power(),
     }
+    rec.update(extra)
     if not reading.valid:
         rec["error"] = "invalid slope reading (per-step time <= 0)"
     if profile_steps:
@@ -184,8 +250,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="bench")
     ap.add_argument("--model", default="sc", choices=sorted(DEFAULT_SIZE))
     ap.add_argument("--size", type=int, default=None,
-                    help="lattice N (default 2048, 128 for hcz3d); rti "
-                         "and scrt run N x (4N + 2)")
+                    help="lattice N (default 2048, 128 for hcz3d, 384 "
+                         "for pulsatile); rti and scrt run N x (4N + 2), "
+                         "pulsatile (1 + 10 (N - 2)) x N")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--steps2", type=int, default=None,
                     help="second step count of the slope (default 3x --steps)")

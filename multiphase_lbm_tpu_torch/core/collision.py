@@ -51,6 +51,23 @@ def gamma_minus_w(u, lattice: Lattice):
     return w.reshape(shape) * (3.0 * cu + 4.5 * cu * cu - usqr[None])
 
 
+def pressure_equilibrium(P, u, rho0, lattice: Lattice):
+    """Incompressible pressure-form equilibrium of the pulsatile module:
+    ``g^eq_k = w_k (P + ρ₀/3 (c·u (3 + 4.5 c·u) − 1.5 u²))``.
+
+    Reference ``PulsatileBloodFlow2D.h:501-507``.  Formed elementwise with
+    one rounding per operation, in the order of the JAX version's
+    arithmetic, so that it is the same on every device (a contraction on
+    the card may fuse a multiply and an add); the pulsatile kernel rounds
+    the same way."""
+    w, c = lattice_tensors(lattice, P)
+    shape = (lattice.q,) + (1,) * P.ndim
+    ux, uy = u[0], u[1]
+    usqr = 1.5 * (ux * ux + uy * uy)
+    cu = c[:, 0].reshape(shape) * ux + c[:, 1].reshape(shape) * uy
+    return w.reshape(shape) * (P + rho0 / 3.0 * (cu * (3.0 + 4.5 * cu) - usqr))
+
+
 # ─── BGK ───────────────────────────────────────────────────────────────────
 def bgk_collide(f, feq, omega):
     """``f' = (1 − ω) f + ω f^eq``."""

@@ -45,7 +45,15 @@ ENTRY_POINTS = {
     # f, out, psi, ny, nx, consts, stream
     "scrt_step_f32": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
     "scrt_step_f64": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
+    # gc, gs, mac, yr, gc_o, gs_o, mac_o, yr_o, bz_idx, bz_val, rs_idx,
+    # rs_val, ctr, ny, nx, cap, t, par, consts, stream
+    "pulsatile_step_f32": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
+    "pulsatile_step_f64": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
 }
+
+# extra nvcc flags of one source: the pulsatile kernel rounds every multiply
+# and add on its own, as the plain path does (see its header note)
+SOURCE_FLAGS = {"pulsatile_step": ["-fmad=false"]}
 
 _lib = None
 # nvcc's report of the last build (ptxas registers / spills per kernel)
@@ -104,7 +112,8 @@ def build() -> Path:
     tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}.tmp"
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+        log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.stem, []),
+                         "-c", "-o", str(o), str(s)]
                         for s, o in zip(sources(), objs)])
         log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, LIB_PATH)

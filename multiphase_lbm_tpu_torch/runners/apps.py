@@ -3,7 +3,8 @@
 Port of the Shan–Chen, HCZ, Fakhari and SC Rayleigh–Taylor runners of
 ``multiphase_lbm_tpu/runners/apps.py`` (``run_sc_laplace2d``,
 ``run_sc_contact_angle``, ``run_young_laplace2d``, ``run_rayleigh_taylor_pf``,
-``run_two_layered_pf``, ``run_laplace3d``, ``run_rayleigh_taylor_sc``).
+``run_two_layered_pf``, ``run_laplace3d``, ``run_rayleigh_taylor_sc``,
+``run_pulsatile``).
 Each reads the reference's
 ``config_*.txt`` keys, runs the solver in chunks of the output cadence and
 emits the same observables: ``sol_*.vtk`` with the module's field list,
@@ -12,7 +13,7 @@ emits the same observables: ``sol_*.vtk`` with the module's field list,
 ``density_probe.dat`` and the final MLUPS line.  State on a CUDA device
 advances through the fused kernels (:mod:`..ops.sc_fused`,
 :mod:`..ops.hcz_fused`, :mod:`..ops.hcz3d_fused`, :mod:`..ops.fakhari_fused`,
-:mod:`..ops.scrt_fused`); state on the CPU through the plain model
+:mod:`..ops.scrt_fused`, :mod:`..ops.pulsatile_fused`); state on the CPU through the plain model
 functions.  The runners keep the lattice and the dtype of the JAX XLA path
 (no 8-row padding, no forced float32), so VTK dimensions and the MLUPS
 element count match the JAX CLI without ``--fused``.
@@ -26,8 +27,10 @@ from ..io.config import lb_parameters, load_config, omega_from_tau
 from ..models import fakhari as fk
 from ..models import hcz
 from ..models import shan_chen as sc
+from ..models import pulsatile as pb
 from ..models import shan_chen_rt as rt
-from ..ops import fakhari_fused, hcz3d_fused, hcz_fused, sc_fused, scrt_fused
+from ..ops import (fakhari_fused, hcz3d_fused, hcz_fused, pulsatile_fused,
+                   sc_fused, scrt_fused)
 from .common import Driver, next_chunk
 
 
@@ -335,6 +338,43 @@ def run_rayleigh_taylor_sc(config, outdir, dtype=torch.float64, max_steps=None,
         it += chunk
     _finish(drv, f)
     return f
+
+
+# ─── Pulsatile vessel (reference PulsatileBloodFlow2D.h :719-794) ──────────
+def run_pulsatile(outdir, N=64, dtype=torch.float64, max_steps=None,
+                  momentum_quirk=True, *, device):
+    """The severed compliant vessel at nx = 1 + 10 (N − 2), ny = N.  The
+    parity mode advances through the kernel on a CUDA device; the
+    quirk-free physics mode has no kernel (in the JAX package either) and
+    runs the plain path, which it says on stdout when on the card."""
+    p = pb.PulsatileParams(nx=1 + 10 * (N - 2), ny=N,
+                           momentum_quirk=momentum_quirk)
+    state = pb.initialize(p, dtype, device=device)
+    tf = max_steps or (p.beat + 2 * p.t_propagation)
+    step_freq = max(1, tf // 100)
+    drv = Driver(outdir, p.nx * p.ny, out_freq=step_freq, vtk_freq=step_freq)
+    if not momentum_quirk and state.P.is_cuda:
+        print("PulsatileBloodFlow2D --quirk-free: no kernel implements the "
+              "physics mode; running the plain PyTorch path on the card")
+    # dump instants: the post-step times that are multiples of step_freq
+    # (the reference's tf/100 cadence), plus the final step; each chunk's
+    # last step is the next dump instant
+    dumps = sorted(set(range(0, tf + 1, step_freq)) | {tf})
+    it = 0                                   # next step index to run
+    for dump_t in dumps:
+        chunk = dump_t - it + 1
+        if momentum_quirk:
+            state, _ = pulsatile_fused.run_fused_full(state, it, p, chunk)
+        else:
+            state = pb.run(state, it, p, chunk)
+        drv.clock.tick(chunk)
+        it = dump_t + 1
+        drv.write_vtk(dump_t, p.nx, p.ny, spacing=1.0 / p.nx,
+                      scalars=[("P", state.P), ("Ux", state.Ux),
+                               ("Uy", state.Uy)],
+                      int_scalars=[("Flag", (~state.fluid).to(torch.int32))])
+    _finish(drv, state.g_stream)
+    return state
 
 
 def _finish(drv, f):

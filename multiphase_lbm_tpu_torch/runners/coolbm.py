@@ -2,10 +2,12 @@
 
     python -m multiphase_lbm_tpu_torch.runners.coolbm <problem> \
         [--config config.txt] [--outdir out] [--steps N] [--f32] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--N 64] [--quirk-free]
 
 Ported problems: laplace2D_sc, contactAngle2D, RayleighTaylor2D_sc,
-Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D.  The JAX CLI's other problems are named so
+Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D and
+PulsatileBloodFlow2D (no config file; ``--N`` and ``--quirk-free`` as in the
+JAX CLI).  The JAX CLI's other problems are named so
 that asking for one says which ROADMAP.md item brings it.  The device
 defaults to ``cuda``, where the solver runs the fused CUDA kernels (there
 is no ``--fused`` flag: on the card the kernel is the path).  The plain
@@ -37,7 +39,6 @@ PROBLEMS = {
 # problem of the JAX CLI -> the ROADMAP.md item that ports it
 NOT_PORTED = {
     "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
-    "PulsatileBloodFlow2D": "Queue A item 9 (models/pulsatile.py)",
     "combustion": "Queue A item 10 (models/combustion.py)",
 }
 
@@ -46,7 +47,8 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="coolbm")
-    ap.add_argument("problem", choices=list(PROBLEMS) + list(NOT_PORTED))
+    ap.add_argument("problem", choices=list(PROBLEMS)
+                    + ["PulsatileBloodFlow2D"] + list(NOT_PORTED))
     ap.add_argument("--config", default=None,
                     help="reference-format config_*.txt (defaults to the "
                          "repo's configs/ file for the problem)")
@@ -58,6 +60,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default, the kernels) or cpu "
                          "(the plain PyTorch path)")
+    ap.add_argument("--quirk-free", action="store_true",
+                    help="PulsatileBloodFlow2D: the physics mode "
+                         "(momentum_quirk=False; the plain path, no kernel) "
+                         "instead of the reference-parity quirks")
+    ap.add_argument("--N", type=int, default=64,
+                    help="resolution for PulsatileBloodFlow2D")
     args = ap.parse_args(argv)
 
     if args.problem in NOT_PORTED:
@@ -70,6 +78,11 @@ def main(argv=None):
               "the plain PyTorch path on the CPU", file=sys.stderr)
         return 2
     dtype = torch.float32 if args.f32 else torch.float64
+    if args.problem == "PulsatileBloodFlow2D":
+        apps.run_pulsatile(args.outdir, N=args.N, dtype=dtype,
+                           max_steps=args.steps,
+                           momentum_quirk=not args.quirk_free, device=device)
+        return 0
     fn, config_name = PROBLEMS[args.problem]
     cfg = args.config
     if cfg is None:

@@ -1,8 +1,8 @@
 """Carry parameters and state from the JAX package to the port.
 
 Both sides exchange plain Python and numpy values, so nothing here imports
-jax: a caller holding a JAX ``SCParams``, ``HCZParams``, ``FakhariParams``
-or ``SCRTParams`` passes
+jax: a caller holding a JAX ``SCParams``, ``HCZParams``, ``FakhariParams``,
+``SCRTParams`` or ``PulsatileParams`` passes
 ``dataclasses.asdict`` of it, and JAX arrays as ``np.asarray`` copies.
 """
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 
 from ..models.fakhari import FakhariParams
 from ..models.hcz import HCZParams
+from ..models.pulsatile import PulsatileParams, PulsatileState
 from ..models.shan_chen import SCParams
 from ..models.shan_chen_rt import SCRTParams
 
@@ -40,6 +41,12 @@ def scrt_params_from_jax(d: dict) -> SCRTParams:
     return SCRTParams(**d)
 
 
+def pulsatile_params_from_jax(d: dict) -> PulsatileParams:
+    """The port's ``PulsatileParams`` from ``dataclasses.asdict`` of the
+    JAX one (same fields; an unknown key raises)."""
+    return PulsatileParams(**d)
+
+
 def state_from_numpy(f_np, fluid_np, device, dtype=torch.float64):
     """``(f, fluid)`` tensors on ``device``: populations ``(9, ny, nx)`` in
     ``dtype`` and the bool fluid mask ``(ny, nx)``."""
@@ -61,3 +68,16 @@ def fakhari_state_from_numpy(h_np, g_np, u_np, device, dtype=torch.float64):
     distributions ``(9, ny, nx)`` and the velocity ``(2, ny, nx)``."""
     return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device)
                  for a in (h_np, g_np, u_np))
+
+
+def pulsatile_state_from_numpy(g_coll, g_stream, yr1, yr2, P, Ux, Uy, F,
+                               fluid, device, dtype=torch.float64):
+    """A :class:`PulsatileState` on ``device`` from the nine fields of the
+    JAX one (numpy arrays, in its field order): ``fluid`` as bool, the rest
+    in ``dtype``."""
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return PulsatileState(
+        t(g_coll), t(g_stream), t(yr1), t(yr2), t(P), t(Ux), t(Uy), t(F),
+        torch.as_tensor(np.array(fluid, dtype=bool), device=device))

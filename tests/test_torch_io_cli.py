@@ -98,9 +98,31 @@ def test_cli_matches_jax_cli(problem, tmp_path):
                                        rtol=1e-9, err_msg=n)
 
 
+@pytest.mark.parametrize("mode", [[], ["--quirk-free"]])
+def test_pulsatile_cli_matches_jax_cli(mode, tmp_path):
+    """PulsatileBloodFlow2D takes no config file: N = 16 (141 × 16), 30
+    steps, tf // 100 = 0, so one dump a step: 31 VTK files, in the parity
+    mode and the quirk-free mode."""
+    jout, tout = tmp_path / "jax", tmp_path / "torch"
+    argv = ["PulsatileBloodFlow2D", "--N", "16", "--steps", "30", *mode]
+    assert jcoolbm.main([*argv, "--outdir", str(jout)]) == 0
+    assert tcoolbm.main([*argv, "--outdir", str(tout), "--device", "cpu"]) == 0
+    names = sorted(os.listdir(jout))
+    assert sorted(os.listdir(tout)) == names
+    assert len(names) == 31 and all(n.startswith("sol_") for n in names)
+    for n in names:
+        assert _vtk_header(tout / n) == _vtk_header(jout / n)
+        assert _vtk_field_list(tout / n) == _vtk_field_list(jout / n)
+        tf, jf = tvtk.read_vtk_fields(tout / n), jvtk.read_vtk_fields(jout / n)
+        assert tf.keys() == jf.keys()
+        for key in jf:
+            np.testing.assert_allclose(tf[key], jf[key], rtol=1e-6,
+                                       atol=1e-12, err_msg=f"{n}:{key}")
+
+
 def test_cli_names_the_roadmap_item_for_unported_problems():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcoolbm.main(["PulsatileBloodFlow2D", "--device", "cpu"])
+        tcoolbm.main(["combustion", "--device", "cpu"])
 
 
 def test_cli_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch,
