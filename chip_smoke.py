@@ -80,6 +80,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      workers' quirk-free physics gates through the plain path
      (validation.womersley: module channel steady < 0.04, shape < 0.15,
      budget < 0.20; core channel steady < 0.003, oscillatory < 0.02).
+ 13. combustion (runs before phase 12, whose worker processes share the
+     card: timed work stays out of that window) — combustion_step against
+     the plain path from a warm state (Y_O2_ini = 0.22, T_solid = 1.8, ten
+     kernel steps, so the reaction is live): (a) the inflow/outflow channel
+     137 × 45, li2014, the default τ (flow relaxation diagonal all ones);
+     (b) τ_flow = 0.8, w_e = 1.1, w_eps = 1.2, w_q = 1.3 (full flow MRT);
+     (c) (b) with first_step; (d) (b) flow only; (e) scheme none without
+     the solid reaction; (f) the cavity with all four populations, Couette
+     and Poiseuille (body force, τ_flow = 0.8) flow only: float32 over 5
+     steps (rtol 2e-5, atol 2e-6, tighter than the Pallas test's 2e-4 and
+     5e-6) and float64 over 20 steps (atol 1e-12),
+     f, g_O2, g_CO2 over bulk and obstacle cells, g_T and g_coll over every
+     cell, the forcing terms over bulk cells; and 420 × 80 and 840 × 160
+     float32, 5 steps, from the bench's warm state, and 420 × 80 flow only
+     (its own code path).  The C++ capture
+     (128 × 48, float64, every step in the binary's first_step mode): every
+     field of validation.combustion_reference.FIELDS within its tolerance
+     at steps 100-500 through combustion_step; the float32 run printed.
+     Main path: bench --model combustion at 420 × 80 and 840 × 160 (all four
+     populations) and 420 × 80 flow only, slope 200/600 after a 2N-step
+     warm-up, each beside its plain path (2/6); bulk state finite, inflow
+     and outflow mass flux (mass_flux_audit) positive, thermal energy
+     finite; coolbm combustion --f32 --steps 1000 --scalar-steps 500 writes
+     ini_f.dat, sol_*.vtk with velocity_Z, a velocity_middleline_*.dat,
+     the audit files, energy.dat, thermal-energy.dat, conservation.dat and
+     its MLUPS line; then --restart <its ini_f.dat> --scalar-steps 200,
+     --topology cavity --u-lid 0.01 and the reference's --bench protocol
+     (flow only, 1000 warm-up and 1000 timed steps), all through
+     combustion_step.
 In phase 3 also: fakhari_step on the 128² bubble at τ = 0.8 and 0.55,
 float32 over 5 steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps
 (atol 1e-12), and 2048² float32, 5 steps; scrt_step on the 128 × 514
@@ -91,7 +120,7 @@ float64 (atol 1e-12, identical fluid maps), 27 float64 steps (steps 2-28,
 which hold no order-dependent reseed step; atol 1e-10, identical fluid
 maps), and one float32 step at N = 384 from the bench's warmed state.
 Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 6-8, 9, 10, 11, 12) and read just after.  Then one JSON line with
+(phases 4-5, 6-8, 9, 10, 11, 13, 12) and read just after.  Then one JSON line with
 every kernel of the paths and, last, {"ok": true, "device": {...}}.
 """
 import concurrent.futures
@@ -99,6 +128,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -117,6 +147,10 @@ SCRT_F32_TOL = dict(rtol=2e-5, atol=2e-6)
 # pulsatile_step against the plain path, by field (tests/test_pallas_pulsatile_full.py)
 PULSATILE_F32_TOL = {"g_coll": 5e-7, "g_stream": 5e-7, "P": 5e-7, "Ux": 5e-7,
                      "Uy": 5e-7, "F": 1e-4, "yr1": 5e-5, "yr2": 5e-5}
+# combustion_step against the plain path: tighter than the Pallas test's
+# rtol 2e-4, atol 5e-6 (tests/test_pallas_combustion.py); the largest
+# float32 error measured on an H100 over 5 steps was 5.4e-7
+COMBUSTION_F32_TOL = dict(rtol=2e-5, atol=2e-6)
 
 # H100 SXM data sheet: 3.35 TB/s of device memory, 67 TFLOP/s float32
 # outside the tensor cores (the kernels use none).
@@ -135,20 +169,58 @@ F32_FLOP_PER_S = 67e12
 # gout, g2 and the macros (132 B), with about 260 operations in the
 # collision (equilibrium, the 9 × 9 moment product), 55 in the streamed
 # sums and 15 in the geometry (the Bouzidi links and the reseed touch O(nx)
-# cells).
+# cells); combustion_step depends on the lattice's flags (combustion_work).
 WORK_PER_CELL = {"sc_step": (72, 200), "hcz_step": (148, 600),
                  "hcz3d_step": (304, 1300), "fakhari_step": (160, 750),
                  "scrt_step": (72, 300), "pulsatile_step": (132, 330)}
 
 
-def bound(name, cells):
+def bound(name, cells, work=None):
     """(bound_ms, bound_by): the least time the card could take for one
     step on ``cells`` cells, the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    nbytes, flops = WORK_PER_CELL[name]
-    t_bytes = cells * nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = cells * flops / F32_FLOP_PER_S * 1e3
+    operations over the float32 rate; ``work``, the (bytes, operations) of
+    the whole step where they depend on the data, replaces ``cells`` times
+    WORK_PER_CELL.  For a state that fits in the 50 MB L2 (combustion at
+    420 × 80 and 840 × 160) the bytes stay in L2 from step to step, so this
+    device-memory bound is an upper estimate of the floor."""
+    nbytes, flops = work or [cells * v for v in WORK_PER_CELL[name]]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def combustion_work(p, konv=True):
+    """(bytes, operations) that one combustion_step step with all four
+    populations (``konv``) must move and do on ``p``'s lattice in float32,
+    in the timed window (li2014, no first step), counted from its flags:
+    f, g_O2, g_CO2 and g_T read and written (288 B a cell); the three
+    forcing terms written at every cell (108 B) and read at the bulk cells
+    only, where a step reads them (108 B a bulk cell); g_coll written at
+    every cell (36 B) and read across the gas-obstacle interface only, one
+    value per directed interface link (a link's conjugate fix and its
+    reverse's read the same two values); the flags and ck_n (1 + 9 B a
+    cell); the momentum-exchange populations of column 0 and row ny - 1
+    (36 B a cell of them).  About 1,500 operations a cell (five 9 × 9 MRT
+    products, four equilibria, the forcing terms, five one-sided gradients,
+    nine interface mass fractions and the Arrhenius rate); the boundary
+    phase touches O(nx + ny) cells in place.  Flow only: f read and written
+    and the flags (73 B a cell), the momentum-exchange populations, and
+    about 250 operations a cell (the moments, one equilibrium, one 9 × 9
+    MRT product)."""
+    from multiphase_lbm_tpu_torch.models import combustion as cbm
+    flags, _ = cbm.build_geometry(p)
+    fl = torch.as_tensor(flags)
+    gas, obst = fl == cbm.BULK, fl == cbm.OBSTACLE
+    links = 0
+    for cx, cy in cbm.C[1:]:
+        shift = (int(cy), int(cx))     # the flag of the upstream cell r − c
+        links += int(((obst & torch.roll(gas, shift, (0, 1)))
+                      | (gas & torch.roll(obst, shift, (0, 1)))).sum())
+    if not konv:
+        return fl.numel() * 73 + 36 * (p.nx + p.ny), fl.numel() * 250
+    nbytes = (fl.numel() * (288 + 108 + 36 + 10) + int(gas.sum()) * 108
+              + links * 4 + 36 * (p.nx + p.ny))
+    return nbytes, fl.numel() * 1500
 
 
 def say(msg):
@@ -185,17 +257,18 @@ def compare(name, out, ref, tol, failures):
     return err
 
 
-def run_cli(coolbm, argv, expected):
-    """coolbm ``argv`` into a temporary directory: returns the files it
-    wrote after checking the exit code, the MLUPS line and the ``expected``
-    files."""
+def run_cli(coolbm, argv, expected, outdir=None):
+    """coolbm ``argv`` into ``outdir`` (default a temporary directory):
+    returns the files it wrote after checking the exit code, the MLUPS line
+    and the ``expected`` files."""
     with tempfile.TemporaryDirectory() as tmp:
+        out = outdir or tmp
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = coolbm.main([*argv, "--outdir", tmp, "--device", "cuda"])
+            rc = coolbm.main([*argv, "--outdir", out, "--device", "cuda"])
         say(buf.getvalue().strip())
         check(rc == 0, f"coolbm {argv} returned {rc}")
-        produced = sorted(os.listdir(tmp))
+        produced = sorted(os.listdir(out))
         say(f"[cli] {argv[0]} wrote {produced}")
         for name in expected:
             check(name in produced, f"{name} not in {produced}")
@@ -232,6 +305,7 @@ def main():
     dev = torch.device("cuda")
 
     from multiphase_lbm_tpu_torch import bench
+    from multiphase_lbm_tpu_torch.models import combustion as cbm
     from multiphase_lbm_tpu_torch.models import fakhari as fk
     from multiphase_lbm_tpu_torch.models import hcz
     from multiphase_lbm_tpu_torch.models import pulsatile as pm
@@ -239,10 +313,11 @@ def main():
     from multiphase_lbm_tpu_torch.models import shan_chen_rt as rt
     from multiphase_lbm_tpu_torch.ops import _build, hcz3d_fused, hcz_fused
     from multiphase_lbm_tpu_torch.ops import fakhari_fused, sc_fused, scrt_fused
-    from multiphase_lbm_tpu_torch.ops import pulsatile_fused
+    from multiphase_lbm_tpu_torch.ops import combustion_fused, pulsatile_fused
     from multiphase_lbm_tpu_torch.runners import coolbm
     from multiphase_lbm_tpu_torch.validation import rti_regression
     from multiphase_lbm_tpu_torch.validation import pulsatile_fullrun
+    from multiphase_lbm_tpu_torch.validation import combustion_reference
     from multiphase_lbm_tpu_torch.validation import scrt_reference
     from multiphase_lbm_tpu_torch.validation import womersley
 
@@ -605,6 +680,167 @@ def main():
     check(scrt_fused.LAUNCHES > before_cli,
           "the RayleighTaylor2D_sc CLI did not launch the kernel")
 
+    # ---- 13. combustion (before phase 12's worker window) ----
+    t13 = time.perf_counter()
+    cb_failures = []
+
+    def cb_compare(name, out, ref, p, tol):
+        """combustion_step against the plain path, each field over the cells
+        where the model defines it (cbm.defined_values: the plain path holds
+        NaN in the forcing terms at solid cells)."""
+        flags, _ = cbm.build_geometry(p)
+        a, b = cbm.defined_values(out, flags), cbm.defined_values(ref, flags)
+        return compare(f"combustion_step {name}", tuple(a.values()),
+                       tuple(b.values()), tol, cb_failures)
+
+    mrt = dict(tau_flow=0.8, w_e=1.1, w_eps=1.2, w_q=1.3)
+    live = dict(Y_O2_ini=0.22)
+    cb_cases = [
+        ("(a) channel 137x45 li2014 default tau",
+         dict(nx=137, ny=45, **live), {}),
+        ("(b) channel 137x45 full flow MRT", dict(nx=137, ny=45, **live, **mrt),
+         {}),
+        ("(c) (b) first_step", dict(nx=137, ny=45, **live, **mrt),
+         dict(first_step=True)),
+        ("(d) (b) flow only", dict(nx=137, ny=45, **live, **mrt),
+         dict(konv=False)),
+        ("(e) scheme none, no solid reaction",
+         dict(nx=137, ny=45, conj_scheme="none", solid_reaction=False, **live),
+         {}),
+        ("(f) cavity 64x32", dict(nx=64, ny=32, topology="cavity", u_lid=0.05,
+                                  **live, **mrt), {}),
+        ("(f) couette 64x32 flow only",
+         dict(nx=64, ny=32, topology="couette", u_lid=0.04, **mrt),
+         dict(konv=False)),
+        ("(f) poiseuille 64x32 flow only",
+         dict(nx=64, ny=32, topology="poiseuille", dpdx=1e-6, tau_flow=0.8),
+         dict(konv=False)),
+    ]
+    cb_errs = {}
+    for name, kw, run_kw in cb_cases:
+        pc = cbm.CombustionParams(**kw)
+        for dtype, steps, tol in ((torch.float32, 5, COMBUSTION_F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            flags, _ = cbm.build_geometry(pc)
+            st = cbm.initialize(pc, dtype, T_solid=1.8, flags=flags, device=dev)
+            st = combustion_fused.run_fused(st, pc, 10, first_step=True)
+            out = combustion_fused.run_fused(st, pc, steps, **run_kw)
+            ref = cbm.run(st, pc, steps, **run_kw)
+            cb_errs[(name, dtype)] = cb_compare(
+                f"{name} {str(dtype)[6:]} {steps} steps", out, ref, pc, tol)
+    err_cb = 0.0
+    # the main path's shapes: 420 × 80 and 840 × 160 with all four
+    # populations, and 420 × 80 flow only (its own code path: no fields
+    # launch, the boundary launch ends after the flow outlet, and the
+    # collision forms ρ and u itself)
+    for size, konvs in ((420, (True, False)), (840, (True,))):
+        pc = bench.combustion_params(size)
+        st = bench.combustion_state(pc, dev)
+        for konv in konvs:
+            out = combustion_fused.run_fused(st, pc, 5, konv=konv)
+            ref = cbm.run(st, pc, 5, konv=konv)
+            e = cb_compare(f"{pc.nx}x{pc.ny} {'konv' if konv else 'flow only'}"
+                           " float32 5 steps from the bench's warm state", out,
+                           ref, pc, COMBUSTION_F32_TOL)
+            if size == 420 and konv:
+                err_cb = e
+            del out, ref
+        del st
+    say("[kernel vs plain] combustion_step largest float32 error "
+        f"{max(v for (_, d), v in cb_errs.items() if d == torch.float32):.3e}"
+        ", float64 "
+        f"{max(v for (_, d), v in cb_errs.items() if d == torch.float64):.3e}")
+    if cb_failures:
+        raise SystemExit(f"combustion_step disagrees with the plain path: "
+                         f"{cb_failures}")
+    rows = combustion_reference.compare(device=dev)
+    for step, row in rows.items():
+        say(f"[capture] combustion 128x48 float64 step {step}: " + ", ".join(
+            f"{k} {v:.3e} (< {combustion_reference.FIELDS[k][0]:g})"
+            for k, v in row.items()))
+    check(combustion_reference.within(rows),
+          "combustion departs from the C++ capture")
+    rows32 = combustion_reference.compare(device=dev, dtype=torch.float32)
+    for step, row in rows32.items():
+        say(f"[capture] combustion 128x48 float32 step {step} (printed, not "
+            "gated): " + ", ".join(f"{k} {v:.3e}" for k, v in row.items()))
+    secs_cmp = time.perf_counter() - t13
+
+    recs_cb = {}
+    cb_cells = ((420, False), (840, False), (420, True))
+    for size, flow_only in cb_cells:
+        rec_p, rd, _ = bench.run(model="combustion", size=size, steps=2,
+                                 steps2=6, plain=True, flow_only=flow_only)
+        say(f"[bench combustion {size} {'flow only' if flow_only else 'konv'} "
+            f"plain] {json.dumps(rec_p)}")
+        check(rd.valid, rec_p)
+        recs_cb[(size, flow_only)] = [rec_p]
+        del rd
+    combustion_fused.LAUNCHES = 0      # count the combustion path's launches only
+    for size, flow_only in cb_cells:
+        rec_k, rd, _ = bench.run(model="combustion", size=size, steps=200,
+                                 steps2=600, flow_only=flow_only)
+        what = "flow only" if flow_only else "konv"
+        say(f"[bench combustion {size} {what} kernel] {json.dumps(rec_k)}")
+        check(rd.valid, rec_k)
+        pc = bench.combustion_params(size)
+        st = rd.out                    # bench.run checked it finite
+        flags, _ = cbm.build_geometry(pc)
+        tab = cbm.build_static_tables(flags, pc)
+        fin, fout = (float(v) for v in cbm.mass_flux_audit(st, tab, pc))
+        energy = float(cbm.thermal_energy(st, tab, pc))
+        say(f"[physics] combustion {pc.nx}x{pc.ny} {what}: mass flux in "
+            f"{fin:.6e}, out {fout:.6e} (both > 0), thermal energy "
+            f"{energy:.6e} (finite)")
+        check(fin > 0 and fout > 0, f"combustion mass flux {fin}, {fout}")
+        check(math.isfinite(energy), f"combustion thermal energy {energy}")
+        recs_cb[(size, flow_only)].insert(0, rec_k)
+        bound_ms, _ = bound("combustion_step", None,
+                            combustion_work(pc, not flow_only))
+        say(f"[main path] kernel {rec_k['value']:.1f} MLUPS "
+            f"({rec_k['ms_per_step']:.5f} ms per step, bound {bound_ms:.6f}"
+            f" ms) vs plain "
+            f"{recs_cb[(size, flow_only)][1]['value']:.3f} MLUPS "
+            f"({recs_cb[(size, flow_only)][1]['ms_per_step']:.2f} ms per step)"
+            f" at the combustion channel {pc.nx}x{pc.ny} {what} float32 on "
+            f"{card}")
+        del rd, st
+    check(combustion_fused.LAUNCHES > 0,
+          "the combustion bench did not launch the kernel")
+    before_cli = combustion_fused.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        stage1, stage2 = os.path.join(tmp, "stage1"), os.path.join(tmp, "stage2")
+        audit = ("inlet_massflow.dat", "inlet_massflow_names.dat",
+                 "outlet_massflow.dat", "outlet_massflow_names.dat",
+                 "inlet_momentumflow.dat", "inlet_momentumflow_names.dat",
+                 "outlet_momentumflow.dat", "outlet_momentumflow_names.dat",
+                 "massflow_Komp_inlet_outlet.dat",
+                 "massflow_Komp_inlet_outlet_names.dat",
+                 "conservation_totals.dat")
+        files = run_cli(coolbm, ["combustion", "--f32", "--steps", "1000",
+                                 "--scalar-steps", "500"],
+                        ("ini_f.dat", "energy.dat", "thermal-energy.dat",
+                         "conservation.dat") + audit, outdir=stage1)
+        for prefix in ("sol_", "velocity_middleline_"):
+            check(any(n.startswith(prefix) for n in files),
+                  f"no {prefix}* from coolbm combustion")
+        vtk = next(n for n in files if n.startswith("sol_"))
+        with open(os.path.join(stage1, vtk)) as fh:
+            check("velocity_Z" in fh.read(), "no velocity_Z in the VTK")
+        run_cli(coolbm, ["combustion", "--f32", "--restart",
+                         os.path.join(stage1, "ini_f.dat"), "--scalar-steps",
+                         "200"], ("thermal-energy.dat", "conservation.dat"),
+                outdir=stage2)
+    run_cli(coolbm, ["combustion", "--f32", "--topology", "cavity", "--u-lid",
+                     "0.01", "--steps", "1000", "--scalar-steps", "200"],
+            ("thermal-energy.dat", "conservation.dat"))
+    run_cli(coolbm, ["combustion", "--f32", "--bench"], ())
+    check(combustion_fused.LAUNCHES > before_cli,
+          "the combustion CLI did not launch the kernel")
+    combustion_launches = combustion_fused.LAUNCHES
+    say(f"[combustion] phase 13 {time.perf_counter() - t13:.1f} s "
+        f"(kernel vs plain and the capture {secs_cmp:.1f} s)")
+
     # ---- 12. pulsatile main path ----
     recs_pl = {}
     for size in (384, 64):
@@ -692,8 +928,9 @@ def main():
     check(err_s < womersley.GATE_STEADY and err_o < womersley.GATE_OSC,
           f"the core channel misses its gates: {err_s}, {err_o}")
 
-    def entry(name, source, replaces, launches, err, rec_k, rec_p, cells):
-        bound_ms, bound_by = bound(name, cells)
+    def entry(name, source, replaces, launches, err, rec_k, rec_p, cells,
+              work=None):
+        bound_ms, bound_by = bound(name, cells, work)
         return {"name": name, "route": "cuda",
                 "source": f"multiphase_lbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
@@ -720,6 +957,10 @@ def main():
               "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
               pulsatile_launches, err_pulsatile, *recs_pl[384],
               pbig.nx * pbig.ny),
+        entry("combustion_step", "combustion_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_combustion.py:171",
+              combustion_launches, err_cb, *recs_cb[(420, False)], 420 * 80,
+              combustion_work(bench.combustion_params(420))),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

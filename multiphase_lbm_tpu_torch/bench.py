@@ -38,11 +38,28 @@ kernels:
   through the kernel for 4N steps (:func:`pulsatile_warm_state`, which
   names the step where a size goes non-finite) and the slope times the
   open vessel; the JSON line carries the warm-up's steps, α and the warmed
-  state's fluid share.
+  state's fluid share;
+* ``combustion``: the reactive MRT channel of the reference's Xu-2018 case
+  (``CooLBM_MRT_combustion.cpp:55-56`` and the ``CombustionParams``
+  defaults: four reactive obstacles, LI2014 conjugate heat), nx = N,
+  ny = 4N/21, float32, kernel ``csrc/combustion_step.cu``.  ``--size 420``
+  (the default, 420 × 80) is the reference's own lattice and ``--size 840``
+  (840 × 160) the JAX package's large combustion workload
+  (``runners/bench_suite.py:227-242``); both states (288 B of float32 state
+  per cell: 9.7 and 38.7 MB) fit in the card's 50 MB L2.  One departure
+  from the reference's cold start: the state starts from
+  ``initialize(T_solid=1.8)`` with ``Y_O2_ini = 0.22``, so the Arrhenius
+  reaction, the anti-bounce-back with Y_int and the heat release are live
+  from the first step (from the cold start the inlet O₂ does not reach the
+  first obstacle, at x = 100, for thousands of steps).  One ``first_step``
+  step and a warm-up of 2N steps in all through the kernel precede the
+  timed window (the inlet's pressure wave, at the speed of sound, reaches
+  the outlet by then, so both audit fluxes are positive), which runs all
+  four populations, or the flow alone with ``--flow-only``.
 
-    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d|fakhari|scrt|pulsatile]
+    python -m multiphase_lbm_tpu_torch.bench [--model sc|rti|hcz3d|fakhari|scrt|pulsatile|combustion]
         [--size N] [--steps 200] [--steps2 600] [--collision mrt] [--plain]
-        [--reps 3] [--profile STEPS]
+        [--flow-only] [--reps 3] [--profile STEPS]
 
 Prints ONE JSON line: ``metric`` (names the model, the lattice and the CUDA
 path, or the plain PyTorch path with ``--plain``), ``value`` in MLUPS (the
@@ -61,22 +78,24 @@ import argparse
 import json
 import subprocess
 import sys
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from .io.config import lb_parameters
+from .models import combustion as cbm
 from .models import fakhari as fk
 from .models import hcz
 from .models import pulsatile as pm
 from .models import shan_chen as sc
 from .models import shan_chen_rt as rt
-from .ops import (fakhari_fused, hcz3d_fused, hcz_fused, pulsatile_fused,
-                  sc_fused, scrt_fused)
+from .ops import (combustion_fused, fakhari_fused, hcz3d_fused, hcz_fused,
+                  pulsatile_fused, sc_fused, scrt_fused)
 from .utils.profiling import device_profile, measure_mlups_slope
 from .validation.rti_regression import rti_state
 
 DEFAULT_SIZE = {"sc": 2048, "rti": 2048, "hcz3d": 128, "fakhari": 2048,
-                "scrt": 2048, "pulsatile": 384}
+                "scrt": 2048, "pulsatile": 384, "combustion": 420}
 
 
 def card_name_and_power() -> str:
@@ -122,9 +141,47 @@ def pulsatile_warm_state(n, device):
     return p, st, 4 * n
 
 
-def _case(model, n, collision, plain, device):
-    """``(state0, make_step, nelem, metric, extra)`` of one benchmark;
-    ``extra`` holds keys for its JSON line."""
+def combustion_params(n):
+    """The reference's combustion channel at nx = n, ny = 4n/21 (420 × 80
+    at n = 420), with ``Y_O2_ini = 0.22``, so that the reaction is live from
+    the first step (see the module docstring)."""
+    return cbm.CombustionParams(nx=n, ny=(4 * n) // 21, Y_O2_ini=0.22)
+
+
+def combustion_warmup_steps(p):
+    """Steps through the kernel before a combustion timing: 2 nx, so the
+    inlet's pressure wave, at the speed of sound, has reached the outlet
+    and both audit fluxes are positive."""
+    return 2 * p.nx
+
+
+def combustion_state(p, device):
+    """``initialize(T_solid=1.8)`` of ``p`` in float32 after one
+    ``first_step`` step and the rest of :func:`combustion_warmup_steps`, all
+    four populations, through the kernel on a card (the plain path on the
+    CPU)."""
+    flags, _ = cbm.build_geometry(p)
+    st = cbm.initialize(p, torch.float32, T_solid=1.8, flags=flags,
+                        device=device)
+    return combustion_fused.run_fused(st, p, combustion_warmup_steps(p),
+                                      first_step=True)
+
+
+class _Case(NamedTuple):
+    """One benchmark: its initial state, ``make_step(n)`` (a callable that
+    runs n steps), its cell count, its metric name, extra keys for its JSON
+    line, and the check of the state after the run where not every tensor
+    is finite by design (else every tensor must be finite)."""
+    state0: object
+    make_step: Callable
+    nelem: int
+    metric: str
+    extra: dict
+    finite: Optional[Callable] = None
+
+
+def _case(model, n, collision, plain, device, flow_only=False) -> _Case:
+    """The :class:`_Case` of one benchmark."""
     label = "plain_PyTorch" if plain else "CUDA"
     if model == "sc":
         p = sc.SCParams(collision=collision)
@@ -139,8 +196,9 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda v: sc_fused.run_fused(v, fluid_f32, p, ns,
                                                     periodic=True)
-        return (f0, make_step, n * n,
-                f"MLUPS_D2Q9_{collision.upper()}_ShanChen_{n}x{n}_{label}", {})
+        return _Case(f0, make_step, n * n,
+                     f"MLUPS_D2Q9_{collision.upper()}_ShanChen_{n}x{n}_{label}",
+                     {})
     if model == "rti":
         p, state0, fluid = rti_state(n, device)
         fluid_f32 = fluid.to(torch.float32)
@@ -151,8 +209,8 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda s: hcz_fused.run_fused(*s, fluid_f32, p, ns)
         ny = 4 * n + 2
-        return (state0, make_step, n * ny,
-                f"MLUPS_D2Q9_HCZ_RTI_{n}x{ny}_{label}", {})
+        return _Case(state0, make_step, n * ny,
+                     f"MLUPS_D2Q9_HCZ_RTI_{n}x{ny}_{label}", {})
     if model == "hcz3d":
         p = hcz3d_params()
         state0 = hcz.init_droplet_3d(n, n, n, p, dtype=torch.float32,
@@ -165,8 +223,8 @@ def _case(model, n, collision, plain, device):
         else:
             def make_step(ns):
                 return lambda s: hcz3d_fused.run_fused_3d(*s, p, ns)
-        return (state0, make_step, n ** 3,
-                f"MLUPS_D3Q19_HCZ_droplet_{n}^3_{label}", {})
+        return _Case(state0, make_step, n ** 3,
+                     f"MLUPS_D3Q19_HCZ_droplet_{n}^3_{label}", {})
     if model == "fakhari":
         p = fk.FakhariParams()
         state0 = fk.init_bubble(n, n, p, dtype=torch.float32, device=device)
@@ -176,8 +234,8 @@ def _case(model, n, collision, plain, device):
         else:
             def make_step(ns):
                 return lambda s: fakhari_fused.run_fused(*s, p, ns)
-        return (state0, make_step, n * n,
-                f"MLUPS_D2Q9_Fakhari_bubble_{n}x{n}_{label}", {})
+        return _Case(state0, make_step, n * n,
+                     f"MLUPS_D2Q9_Fakhari_bubble_{n}x{n}_{label}", {})
     if model == "scrt":
         p = rt.SCRTParams()
         ny = 4 * n + 2
@@ -190,8 +248,8 @@ def _case(model, n, collision, plain, device):
         else:
             def make_step(ns):
                 return lambda v: scrt_fused.run_fused(v, p, ns)
-        return (f0, make_step, n * ny, f"MLUPS_D2Q9_SCRT_{n}x{ny}_{label}",
-                {})
+        return _Case(f0, make_step, n * ny,
+                     f"MLUPS_D2Q9_SCRT_{n}x{ny}_{label}", {})
     if model == "pulsatile":
         p, state0, t0 = pulsatile_warm_state(n, device)
         if plain:
@@ -201,30 +259,50 @@ def _case(model, n, collision, plain, device):
             def make_step(ns):
                 return lambda s: pulsatile_fused.run_fused_full(s, t0, p,
                                                                 ns)[0]
-        return (state0, make_step, p.nx * p.ny,
-                f"MLUPS_D2Q9_MRT_pulsatile_{p.nx}x{p.ny}_{label}",
-                {"warmup_steps": t0, "alpha": p.alpha,
-                 "fluid_share": float(state0.fluid.float().mean())})
+        return _Case(state0, make_step, p.nx * p.ny,
+                     f"MLUPS_D2Q9_MRT_pulsatile_{p.nx}x{p.ny}_{label}",
+                     {"warmup_steps": t0, "alpha": p.alpha,
+                      "fluid_share": float(state0.fluid.float().mean())})
+    if model == "combustion":
+        p = combustion_params(n)
+        state0 = combustion_state(p, device)
+        konv = not flow_only
+        if plain:
+            def make_step(ns):
+                return lambda s: cbm.run(s, p, ns, konv=konv)
+        else:
+            def make_step(ns):
+                return lambda s: combustion_fused.run_fused(s, p, ns,
+                                                            konv=konv)
+        part = "konv" if konv else "flow_only"
+        flags, _ = cbm.build_geometry(p)
+        return _Case(state0, make_step, p.nx * p.ny,
+                     f"MLUPS_D2Q9_MRT_combustion_{p.nx}x{p.ny}_{part}_{label}",
+                     {"konv": konv, "warmup_steps": combustion_warmup_steps(p)},
+                     lambda st: all(bool(torch.isfinite(v).all()) for v in
+                                    cbm.defined_values(st, flags).values()))
     raise ValueError(f"unknown model {model!r}")
 
 
 def run(size=None, steps=200, steps2=None, collision="mrt", plain=False,
-        reps=3, model="sc", profile_steps=0):
+        reps=3, model="sc", profile_steps=0, flow_only=False):
     """Time one benchmark on ``cuda``; returns ``(record, reading, state0)``
     where ``reading.out`` is the state after the last timed call and
     ``state0`` the initial state it started from (a tensor for ``sc`` and
     ``scrt``, an ``(f, g)`` pair for the HCZ models, ``(h, g, u)`` for
-    ``fakhari``, a ``PulsatileState`` for ``pulsatile``)."""
+    ``fakhari``, a ``PulsatileState`` for ``pulsatile``, a
+    ``CombustionState`` for ``combustion``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     n = size or DEFAULT_SIZE[model]
-    state0, make_step, nelem, metric, extra = _case(
-        model, n, collision, plain, torch.device("cuda"))
+    state0, make_step, nelem, metric, extra, finite = _case(
+        model, n, collision, plain, torch.device("cuda"), flow_only)
     steps2 = 3 * steps if steps2 is None else steps2
     reading = measure_mlups_slope(make_step, state0, steps, steps2, nelem,
                                   reps=reps)
     out = reading.out if isinstance(reading.out, tuple) else (reading.out,)
-    if not all(bool(torch.isfinite(t).all()) for t in out):
+    if not (finite(reading.out) if finite else
+            all(bool(torch.isfinite(t).all()) for t in out)):
         raise RuntimeError("non-finite state after benchmark")
     rec = {
         "metric": metric,
@@ -251,8 +329,9 @@ def main(argv=None):
     ap.add_argument("--model", default="sc", choices=sorted(DEFAULT_SIZE))
     ap.add_argument("--size", type=int, default=None,
                     help="lattice N (default 2048, 128 for hcz3d, 384 "
-                         "for pulsatile); rti and scrt run N x (4N + 2), "
-                         "pulsatile (1 + 10 (N - 2)) x N")
+                         "for pulsatile, 420 for combustion); rti and scrt "
+                         "run N x (4N + 2), pulsatile (1 + 10 (N - 2)) x N, "
+                         "combustion N x 4N/21")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--steps2", type=int, default=None,
                     help="second step count of the slope (default 3x --steps)")
@@ -260,6 +339,9 @@ def main(argv=None):
                     help="collision of the sc model")
     ap.add_argument("--plain", action="store_true",
                     help="time the plain PyTorch path instead of the kernel")
+    ap.add_argument("--flow-only", action="store_true",
+                    help="combustion: time the flow population alone "
+                         "(konv off)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="also profile one call of STEPS steps (device "
@@ -267,7 +349,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     rec, reading, _ = run(args.size, args.steps, args.steps2, args.collision,
                           args.plain, args.reps, model=args.model,
-                          profile_steps=args.profile)
+                          profile_steps=args.profile,
+                          flow_only=args.flow_only)
     print(json.dumps(rec))
     return 0 if reading.valid else 1
 

@@ -1,19 +1,21 @@
 """Per-problem drivers, schema-compatible with the reference app modules.
 
-Port of the Shan–Chen, HCZ, Fakhari and SC Rayleigh–Taylor runners of
-``multiphase_lbm_tpu/runners/apps.py`` (``run_sc_laplace2d``,
-``run_sc_contact_angle``, ``run_young_laplace2d``, ``run_rayleigh_taylor_pf``,
-``run_two_layered_pf``, ``run_laplace3d``, ``run_rayleigh_taylor_sc``,
-``run_pulsatile``).
+Port of the Shan–Chen, HCZ, Fakhari, SC Rayleigh–Taylor, pulsatile and
+combustion runners of ``multiphase_lbm_tpu/runners/apps.py``
+(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``run_young_laplace2d``,
+``run_rayleigh_taylor_pf``, ``run_two_layered_pf``, ``run_laplace3d``,
+``run_rayleigh_taylor_sc``, ``run_pulsatile``, ``run_combustion``).
 Each reads the reference's
-``config_*.txt`` keys, runs the solver in chunks of the output cadence and
-emits the same observables: ``sol_*.vtk`` with the module's field list,
-``energy.dat`` / ``mass.dat`` / ``contact_angle.dat`` /
-``spike_bubble_position.dat`` / ``spike_bubble_velocity.dat`` /
-``density_probe.dat`` and the final MLUPS line.  State on a CUDA device
+``config_*.txt`` keys (the pulsatile and combustion drivers take none), runs
+the solver in chunks of the output cadence and emits the same observables:
+``sol_*.vtk`` with the module's field list, ``energy.dat`` / ``mass.dat`` /
+``contact_angle.dat`` / ``spike_bubble_position.dat`` /
+``spike_bubble_velocity.dat`` / ``density_probe.dat``, the combustion
+audits, and the final MLUPS line.  State on a CUDA device
 advances through the fused kernels (:mod:`..ops.sc_fused`,
 :mod:`..ops.hcz_fused`, :mod:`..ops.hcz3d_fused`, :mod:`..ops.fakhari_fused`,
-:mod:`..ops.scrt_fused`, :mod:`..ops.pulsatile_fused`); state on the CPU through the plain model
+:mod:`..ops.scrt_fused`, :mod:`..ops.pulsatile_fused`,
+:mod:`..ops.combustion_fused`); state on the CPU through the plain model
 functions.  The runners keep the lattice and the dtype of the JAX XLA path
 (no 8-row padding, no forced float32), so VTK dimensions and the MLUPS
 element count match the JAX CLI without ``--fused``.
@@ -23,14 +25,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io import checkpoint as ckpt
 from ..io.config import lb_parameters, load_config, omega_from_tau
+from ..models import combustion as cb
 from ..models import fakhari as fk
 from ..models import hcz
 from ..models import shan_chen as sc
 from ..models import pulsatile as pb
 from ..models import shan_chen_rt as rt
-from ..ops import (fakhari_fused, hcz3d_fused, hcz_fused, pulsatile_fused,
-                   sc_fused, scrt_fused)
+from ..ops import (combustion_fused, fakhari_fused, hcz3d_fused, hcz_fused,
+                   pulsatile_fused, sc_fused, scrt_fused)
 from .common import Driver, next_chunk
 
 
@@ -375,6 +379,144 @@ def run_pulsatile(outdir, N=64, dtype=torch.float64, max_steps=None,
                       int_scalars=[("Flag", (~state.fluid).to(torch.int32))])
     _finish(drv, state.g_stream)
     return state
+
+
+# ─── Combustion channel (reference runCavityTwoPop :4074-4496) ─────────────
+# physical time-step size and the Middleline dump times of the reference
+# (CooLBM_MRT_combustion.cpp:79, :4431-4441)
+CB_DELTA_T_PH = 1.0 / 48771706.22
+CB_MIDDLELINE_TIMES = (0.002, 0.006)
+
+
+def _combustion_vtk(drv, st, p, flags, it):
+    """VTK dump with the reference's field list, velocity_Z included
+    (saveVtkFields, CooLBM_MRT_combustion.cpp:3560-3711; 2D run, so 0)."""
+    rho, u = cb.macro_flow(st.f)
+    drv.write_vtk(it, p.nx, p.ny,
+                  scalars=[("Density", rho),
+                           ("Temperature", cb.macro_scalar(st.gT)),
+                           ("mass_fraction_O2", cb.macro_scalar(st.gO2)),
+                           ("mass_fraction_CO2", cb.macro_scalar(st.gCO2)),
+                           ("velocity_X", u[0]),
+                           ("velocity_Y", u[1]),
+                           ("velocity_Z", np.zeros((p.ny, p.nx)))],
+                  int_scalars=[("Flag", flags.astype(int))])
+
+
+def _combustion_runner(p):
+    """:func:`..ops.combustion_fused.run_fused` where the kernel covers
+    ``p`` (on the CPU it runs the plain path); otherwise the plain path,
+    with a line that says so and why (the GUO2015 and HUBER2015 schemes:
+    neither has a kernel, in the JAX package either)."""
+    refused = combustion_fused.unsupported(p)
+    if refused:
+        print("combustion: the kernel does not cover " + ", ".join(refused)
+              + "; running the plain PyTorch path")
+        return cb.run
+    return combustion_fused.run_fused
+
+
+def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
+                   flow_steps=20000, scalar_steps=5000, T_solid=None,
+                   conj_scheme="li2014", restart=None, save_flow=True,
+                   benchmark=False, bench_ini_iter=1000, bench_max_iter=2000,
+                   topology="inflow_outflow", u_lid=None, dpdx=0.0, *,
+                   device):
+    """Two-stage combustion driver (reference main :4074-4496).
+
+    ``restart`` warm-starts the flow from a reference-format ``ini_f.dat``
+    and skips the flow-convergence stage, as the reference's two-stage
+    workflow does; ``save_flow`` writes the converged field back out.
+    ``benchmark`` is the reference's bench mode (:4376-4380): flow only,
+    ``bench_ini_iter`` warm-up steps, then the MLUPS of the remaining
+    ``bench_max_iter − bench_ini_iter``.  ``topology`` selects the
+    reference's domain branches (:154-254, :3756-4073): cavity (moving lid
+    ``u_lid``), couette (moving top wall, periodic x), poiseuille (body force
+    ``dpdx``, periodic x), or the default reactive inflow/outflow channel,
+    the only one with the Xu-2018 obstacles."""
+    # a lid speed exists only for the moving-wall topologies
+    if u_lid is None:
+        u_lid = 0.002 if topology in ("cavity", "couette") else 0.0
+    p = cb.CombustionParams(nx=nx, ny=ny, conj_scheme=conj_scheme,
+                            topology=topology, u_lid=u_lid, dpdx=dpdx,
+                            with_obstacles=(topology == "inflow_outflow"))
+    flags, _ = cb.build_geometry(p)
+    tab = cb.build_static_tables(flags, p)
+    runner = _combustion_runner(p)
+
+    def sync(st):
+        if st.f.is_cuda:
+            torch.cuda.synchronize(st.f.device)
+
+    if benchmark:
+        import time
+        st = cb.initialize(p, dtype, T_solid=T_solid, flags=flags,
+                           device=device)
+        st = runner(st, p, bench_ini_iter, konv=False)
+        sync(st)
+        n = bench_max_iter - bench_ini_iter
+        t0 = time.perf_counter()
+        st = runner(st, p, n, konv=False)
+        sync(st)
+        dt_s = time.perf_counter() - t0
+        print(f"MLUPS: {nx * ny * n / dt_s / 1e6:.1f}")
+        return st
+
+    f0 = None
+    if restart is not None:
+        f0 = ckpt.load_flow_field_txt(restart)
+        if f0.shape != (9, ny, nx):
+            raise ValueError(
+                f"restart field {f0.shape[1:]} does not match the requested "
+                f"lattice ({ny}, {nx}); pass matching --ny/--nx")
+    st = cb.initialize(p, dtype, T_solid=T_solid, flags=flags, f_restart=f0,
+                       device=device)
+    drv = Driver(outdir, nx * ny, out_freq=1000, vtk_freq=0)
+
+    def log(done, e, dev):
+        drv.log_file("energy.dat").log(done, e, dev)
+
+    if restart is not None:
+        # a restarted run trusts the converged field and goes straight to
+        # the reactive stage (:4345, :536-542)
+        done = 0
+    else:
+        st, done = cb.run_staged(st, p, max_flow_steps=flow_steps,
+                                 check_every=500, scalar_steps=0, log=log,
+                                 runner=runner)
+        if save_flow:
+            ckpt.save_flow_field_txt(f"{outdir}/ini_f.dat", st.f)
+
+    # reactive stage, chunked so that the Middleline dumps fire when the
+    # run crosses the reference's fixed physical times (:4431-4441)
+    it = done
+    if scalar_steps > 0:
+        st = runner(st, p, 1, konv=True, first_step=True)
+        it += 1
+        left = scalar_steps - 1
+        while left > 0:
+            chunk = min(left, 500)
+            t_prev = it * CB_DELTA_T_PH
+            st = runner(st, p, chunk, konv=True)
+            it += chunk
+            left -= chunk
+            t_now = it * CB_DELTA_T_PH
+            for t_mark in CB_MIDDLELINE_TIMES:
+                if t_prev < t_mark <= t_now:
+                    cb.middleline(outdir, st, tab, p, t_ph=t_mark)
+    it_total = it
+    cb.middleline(outdir, st, tab, p, t_ph=it_total * CB_DELTA_T_PH)
+
+    drv.clock.tick(it_total)
+    drv.log_file("thermal-energy.dat").log(
+        it_total, float(cb.thermal_energy(st, tab, p)))
+    cb.save_profiles(outdir, st, tab, p)
+    cb.conservation_audit(outdir, st, tab, p)
+    _combustion_vtk(drv, st, p, flags, it_total)
+    fin, fout = cb.mass_flux_audit(st, tab, p)
+    drv.log_file("conservation.dat").log(float(fin), float(fout))
+    _finish(drv, st.f)
+    return st
 
 
 def _finish(drv, f):

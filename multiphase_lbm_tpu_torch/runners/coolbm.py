@@ -2,13 +2,18 @@
 
     python -m multiphase_lbm_tpu_torch.runners.coolbm <problem> \
         [--config config.txt] [--outdir out] [--steps N] [--f32] \
-        [--device cuda|cpu] [--N 64] [--quirk-free]
+        [--device cuda|cpu] [--N 64] [--quirk-free] [--scheme li2014]
+        [--topology inflow_outflow] [--u-lid U] [--dpdx F] [--restart INI_F]
+        [--bench] [--scalar-steps 5000] [--nx 420] [--ny 80]
 
 Ported problems: laplace2D_sc, contactAngle2D, RayleighTaylor2D_sc,
-Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D and
+Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D,
 PulsatileBloodFlow2D (no config file; ``--N`` and ``--quirk-free`` as in the
-JAX CLI).  The JAX CLI's other problems are named so
-that asking for one says which ROADMAP.md item brings it.  The device
+JAX CLI) and combustion (no config file; the combustion flags as in the JAX
+CLI, ``--steps`` bounds the flow stage).  On the card, a combustion
+configuration the kernel does not cover (the guo2015 and huber2015 schemes)
+runs the plain path and says so.  The JAX CLI's other problem is named so
+that asking for it says which ROADMAP.md item brings it.  The device
 defaults to ``cuda``, where the solver runs the fused CUDA kernels (there
 is no ``--fused`` flag: on the card the kernel is the path).  The plain
 PyTorch path runs only when ``--device cpu`` asks for it: without a visible
@@ -39,7 +44,6 @@ PROBLEMS = {
 # problem of the JAX CLI -> the ROADMAP.md item that ports it
 NOT_PORTED = {
     "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
-    "combustion": "Queue A item 10 (models/combustion.py)",
 }
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
@@ -48,7 +52,8 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="coolbm")
     ap.add_argument("problem", choices=list(PROBLEMS)
-                    + ["PulsatileBloodFlow2D"] + list(NOT_PORTED))
+                    + ["PulsatileBloodFlow2D", "combustion"]
+                    + list(NOT_PORTED))
     ap.add_argument("--config", default=None,
                     help="reference-format config_*.txt (defaults to the "
                          "repo's configs/ file for the problem)")
@@ -66,6 +71,32 @@ def main(argv=None):
                          "instead of the reference-parity quirks")
     ap.add_argument("--N", type=int, default=64,
                     help="resolution for PulsatileBloodFlow2D")
+    ap.add_argument("--scheme", default="li2014",
+                    choices=["li2014", "guo2015", "huber2015", "none"],
+                    help="combustion: conjugate-heat scheme")
+    ap.add_argument("--topology", default="inflow_outflow",
+                    choices=["inflow_outflow", "cavity", "couette",
+                             "poiseuille"],
+                    help="combustion: domain topology (reference global "
+                         "flags, CooLBM_MRT_combustion.cpp:154-254)")
+    ap.add_argument("--u-lid", type=float, default=None,
+                    help="combustion: lid/moving-wall speed for cavity and "
+                         "couette (default 0.002 there, 0 elsewhere)")
+    ap.add_argument("--dpdx", type=float, default=0.0,
+                    help="combustion: body force for poiseuille")
+    ap.add_argument("--restart", default=None, metavar="INI_F",
+                    help="combustion: warm-start the flow from a "
+                         "reference-format ini_f.dat (skips the "
+                         "flow-convergence stage)")
+    ap.add_argument("--bench", action="store_true",
+                    help="combustion: the reference's bench mode (flow "
+                         "only, 1000 warm-up steps, MLUPS over 1000 more)")
+    ap.add_argument("--scalar-steps", type=int, default=5000,
+                    help="combustion: reactive-stage step count")
+    ap.add_argument("--nx", type=int, default=420,
+                    help="combustion lattice width (reference N_X = 420)")
+    ap.add_argument("--ny", type=int, default=80,
+                    help="combustion lattice height (reference N_Y = 80)")
     args = ap.parse_args(argv)
 
     if args.problem in NOT_PORTED:
@@ -82,6 +113,14 @@ def main(argv=None):
         apps.run_pulsatile(args.outdir, N=args.N, dtype=dtype,
                            max_steps=args.steps,
                            momentum_quirk=not args.quirk_free, device=device)
+        return 0
+    if args.problem == "combustion":
+        apps.run_combustion(args.outdir, nx=args.nx, ny=args.ny, dtype=dtype,
+                            flow_steps=args.steps or 20000,
+                            scalar_steps=args.scalar_steps,
+                            conj_scheme=args.scheme, restart=args.restart,
+                            benchmark=args.bench, topology=args.topology,
+                            u_lid=args.u_lid, dpdx=args.dpdx, device=device)
         return 0
     fn, config_name = PROBLEMS[args.problem]
     cfg = args.config

@@ -2,7 +2,7 @@
 
 Both sides exchange plain Python and numpy values, so nothing here imports
 jax: a caller holding a JAX ``SCParams``, ``HCZParams``, ``FakhariParams``,
-``SCRTParams`` or ``PulsatileParams`` passes
+``SCRTParams``, ``PulsatileParams`` or ``CombustionParams`` passes
 ``dataclasses.asdict`` of it, and JAX arrays as ``np.asarray`` copies.
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.combustion import CombustionParams, CombustionState
 from ..models.fakhari import FakhariParams
 from ..models.hcz import HCZParams
 from ..models.pulsatile import PulsatileParams, PulsatileState
@@ -81,3 +82,20 @@ def pulsatile_state_from_numpy(g_coll, g_stream, yr1, yr2, P, Ux, Uy, F,
     return PulsatileState(
         t(g_coll), t(g_stream), t(yr1), t(yr2), t(P), t(Ux), t(Uy), t(F),
         torch.as_tensor(np.array(fluid, dtype=bool), device=device))
+
+
+def combustion_params_from_jax(d: dict) -> CombustionParams:
+    """The port's ``CombustionParams`` from ``dataclasses.asdict`` of the
+    JAX one (same fields; an unknown key raises)."""
+    return CombustionParams(**d)
+
+
+def combustion_state_from_numpy(f, gO2, gCO2, gT, F_O2_prev, F_CO2_prev,
+                                F_T_prev, g_coll, q_heat, device,
+                                dtype=torch.float64):
+    """A :class:`CombustionState` on ``device`` in ``dtype`` from the nine
+    fields of the JAX one (numpy arrays, in its field order)."""
+    return CombustionState(*(
+        torch.as_tensor(np.array(a), dtype=dtype, device=device)
+        for a in (f, gO2, gCO2, gT, F_O2_prev, F_CO2_prev, F_T_prev, g_coll,
+                  q_heat)))

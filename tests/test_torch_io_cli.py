@@ -16,6 +16,7 @@ import torch
 from multiphase_lbm_tpu.io import config as jconfig
 from multiphase_lbm_tpu.io import vtk as jvtk
 from multiphase_lbm_tpu.runners import coolbm as jcoolbm
+from multiphase_lbm_tpu_torch.io import checkpoint as tckpt
 from multiphase_lbm_tpu_torch.io import config as tconfig
 from multiphase_lbm_tpu_torch.io import vtk as tvtk
 from multiphase_lbm_tpu_torch.io.loggers import DatLogger, MlupsClock
@@ -122,7 +123,108 @@ def test_pulsatile_cli_matches_jax_cli(mode, tmp_path):
 
 def test_cli_names_the_roadmap_item_for_unported_problems():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcoolbm.main(["combustion", "--device", "cpu"])
+        tcoolbm.main(["twoLayeredFlow2D_sc", "--device", "cpu"])
+    assert "combustion" not in tcoolbm.NOT_PORTED
+
+
+def _combustion_argv(topology, extra, outdir):
+    return ["combustion", "--topology", topology, "--nx", "48", "--ny", "16",
+            "--steps", "30", "--scalar-steps", "5", "--outdir", str(outdir),
+            *extra]
+
+
+def _same_outputs(tout, jout):
+    """The port's run wrote the JAX run's files, with the same VTK headers
+    and field lists, fields equal to the VTK text's 6 digits and .dat
+    columns to 1e-6 relative (the two packages sum in other orders)."""
+    names = sorted(os.listdir(jout))
+    assert sorted(os.listdir(tout)) == names
+    for n in names:
+        if n.endswith(".vtk"):
+            assert _vtk_header(tout / n) == _vtk_header(jout / n)
+            assert _vtk_field_list(tout / n) == _vtk_field_list(jout / n)
+            tf, jf = tvtk.read_vtk_fields(tout / n), jvtk.read_vtk_fields(jout / n)
+            assert tf.keys() == jf.keys()
+            for key in jf:
+                np.testing.assert_allclose(tf[key], jf[key], rtol=1e-6,
+                                           atol=1e-12, err_msg=f"{n}:{key}")
+        elif n.endswith("_names.dat"):
+            assert (tout / n).read_text() == (jout / n).read_text()
+        elif n == "ini_f.dat":
+            np.testing.assert_allclose(tckpt.load_flow_field_txt(tout / n),
+                                       tckpt.load_flow_field_txt(jout / n),
+                                       rtol=1e-9, err_msg=n)
+        else:
+            np.testing.assert_allclose(np.loadtxt(tout / n),
+                                       np.loadtxt(jout / n), rtol=1e-6,
+                                       atol=1e-15, err_msg=n)
+
+
+@pytest.mark.parametrize("topology,extra", [
+    ("cavity", ["--u-lid", "0.01"]),
+    ("couette", ["--u-lid", "0.01"]),
+    ("poiseuille", ["--dpdx", "1e-6"]),
+])
+def test_combustion_cli_topology_smoke(topology, extra, tmp_path):
+    """Each reference domain branch from the CLI at 48 × 16
+    (tests/test_combustion.py:317-335): the run completes, stays finite and
+    writes the audit and VTK set; the cavity's files equal the JAX CLI's."""
+    tout = tmp_path / "torch"
+    assert tcoolbm.main(_combustion_argv(topology, extra, tout)
+                        + ["--device", "cpu"]) == 0
+    vtk = list(tout.glob("sol_*.vtk"))
+    assert vtk and "velocity_Z" in vtk[0].read_text()
+    fields = tvtk.read_vtk_fields(vtk[0])
+    bulk = fields["Flag"] == 0        # u is 0/0 at the walls, by design
+    for key, field in fields.items():
+        if key != "DIMENSIONS":
+            assert np.isfinite(field[bulk]).all(), key
+    if topology == "cavity":
+        jout = tmp_path / "jax"
+        assert jcoolbm.main(_combustion_argv(topology, extra, jout)) == 0
+        _same_outputs(tout, jout)
+
+
+def test_combustion_cli_restart_workflow(tmp_path):
+    """The two-stage round trip at 96 × 48 (tests/test_combustion.py:338-358):
+    the flow stage writes ini_f.dat, and a --restart run reads it and goes
+    straight to the reactive stage."""
+    out1, out2 = tmp_path / "stage1", tmp_path / "stage2"
+    base = ["combustion", "--nx", "96", "--ny", "48", "--device", "cpu"]
+    assert tcoolbm.main([*base, "--steps", "600", "--scalar-steps", "40",
+                         "--outdir", str(out1)]) == 0
+    assert (out1 / "ini_f.dat").exists()
+    assert tcoolbm.main([*base, "--scalar-steps", "40", "--restart",
+                         str(out1 / "ini_f.dat"), "--outdir", str(out2)]) == 0
+    assert not (out2 / "ini_f.dat").exists()
+    assert (out2 / "inlet_massflow.dat").exists()
+    assert list(out2.glob("velocity_middleline_*.dat"))
+    vtk = list(out2.glob("sol_*.vtk"))
+    assert vtk and "velocity_Z" in vtk[0].read_text()
+    assert np.isfinite(np.loadtxt(out2 / "conservation.dat")).all()
+    with pytest.raises(ValueError, match="does not match"):
+        tcoolbm.main(["combustion", "--nx", "64", "--ny", "48", "--device",
+                      "cpu", "--restart", str(out1 / "ini_f.dat"),
+                      "--outdir", str(tmp_path / "bad")])
+
+
+def test_combustion_cli_bench_runs_the_plain_path_and_says_why(tmp_path,
+                                                               capsys):
+    """--bench with the guo2015 scheme, which no kernel covers: the plain
+    path runs, and a line says so and why."""
+    assert tcoolbm.main(["combustion", "--nx", "64", "--ny", "32", "--bench",
+                         "--scheme", "guo2015", "--device", "cpu",
+                         "--outdir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "does not cover scheme 'guo2015'" in out
+    assert "plain PyTorch path" in out and "MLUPS" in out
+
+
+def test_combustion_cli_refuses_without_a_card(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(tcoolbm.torch.cuda, "is_available", lambda: False)
+    assert tcoolbm.main(["combustion", "--outdir", str(tmp_path)]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
 
 
 def test_cli_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch,
