@@ -119,9 +119,33 @@ P, U within 5e-7, yr 5e-5, F 1e-4: the Pallas test's tolerances) and in
 float64 (atol 1e-12, identical fluid maps), 27 float64 steps (steps 2-28,
 which hold no order-dependent reseed step; atol 1e-10, identical fluid
 maps), and one float32 step at N = 384 from the bench's warmed state.
+14. decomposition (runs after phase 13, before phase 12's worker window) —
+     each halo-in entry (step_fused_halo of sc, hcz, fakhari and scrt,
+     step_fused_halo_3d of hcz3d: the family's kernel launched nsub times on
+     a shard's halo-extended slab) against its plain version on a 64-row
+     shard's slab at ω ≠ 1, float32 over 5 sub-steps (the family's kernel
+     tolerance) and float64 over 20 (atol 1e-12); the validation.multichip_check
+     subcommands at their default sizes (4 shards on this card); then the
+     decomposition's main path, every path at full width against the
+     single-lattice kernel run of as many steps from the same state, max
+     |diff| <= 1e-6 (0 expected: the same per-cell arithmetic):
+     make_fused_hcz_step on RTI-2048 over 2 y shards (8194 rows do not
+     divide by 4), nsub 5, 100 steps; make_fused_hcz_step_2d on RTI-2048
+     over 2 × 2, nsub 2, 40 steps; make_fused_sc_step on the walled 2048² SC
+     droplet (MRT, ω = 1.25) over 4 y shards, nsub 4, 100 steps;
+     make_fused_sc_step_2d on it over 2 × 2, nsub 2, 40 steps;
+     make_fused_fakhari_step on the 2048² bubble over 4 y shards, nsub 2,
+     100 steps; make_fused_scrt_step on SC-RT 2048 × 8194 over 4 x shards,
+     nsub 2, 100 steps; make_fused_hcz3d_step on the 128³ droplet over 4 z
+     shards, nsub 2, 50 steps.  Each prints its ms per step and MLUPS
+     beside the single-lattice kernel's, the exchange's share of the step
+     and the halo entries' time (CUDA events, not gated: shards on one card
+     run one after another, so this measures overhead, not scaling).
 Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 6-8, 9, 10, 11, 13, 12) and read just after.  Then one JSON line with
-every kernel of the paths and, last, {"ok": true, "device": {...}}.
+(phases 4-5, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
+routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
+the paths, the five halo routes included, and, last,
+{"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import contextlib
@@ -318,6 +342,7 @@ def main():
     from multiphase_lbm_tpu_torch.validation import rti_regression
     from multiphase_lbm_tpu_torch.validation import pulsatile_fullrun
     from multiphase_lbm_tpu_torch.validation import combustion_reference
+    from multiphase_lbm_tpu_torch.validation import multichip_check as mc
     from multiphase_lbm_tpu_torch.validation import scrt_reference
     from multiphase_lbm_tpu_torch.validation import womersley
 
@@ -594,6 +619,7 @@ def main():
             ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"))
     check(hcz3d_fused.LAUNCHES > bench3d_launches,
           "the laplace3D CLI did not launch the kernel")
+    hcz3d_launches = hcz3d_fused.LAUNCHES
 
     # ---- 10. Fakhari main path: the 2048² bubble ----
     rec_fk_plain, rd, _ = bench.run(model="fakhari", steps=2, steps2=6,
@@ -679,6 +705,7 @@ def main():
              "spike_bubble_position.dat"))
     check(scrt_fused.LAUNCHES > before_cli,
           "the RayleighTaylor2D_sc CLI did not launch the kernel")
+    scrt_launches = scrt_fused.LAUNCHES
 
     # ---- 13. combustion (before phase 12's worker window) ----
     t13 = time.perf_counter()
@@ -841,6 +868,65 @@ def main():
     say(f"[combustion] phase 13 {time.perf_counter() - t13:.1f} s "
         f"(kernel vs plain and the capture {secs_cmp:.1f} s)")
 
+    # ---- 14. decomposition (before phase 12's worker window) ----
+    t14 = time.perf_counter()
+    for family in mc.HALO_ENTRIES:
+        for dtype, nsub in ((torch.float32, 5), (torch.float64, 20)):
+            res = mc.check_halo_entry(family, dtype, nsub, dev)
+            torch.cuda.synchronize()
+            ok = (res["ok"] and res["launched"] == nsub
+                  and res["launched_main"] == 0)
+            say(f"[kernel vs plain] {family} step_fused_halo {str(dtype)[6:]} "
+                f"{nsub} sub-steps on a 64-row shard's slab: max abs err "
+                f"{res['max_abs_err']:.3e} (rtol {res['tol']['rtol']}, atol "
+                f"{res['tol']['atol']}), {res['launched']} halo launches "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{family} step_fused_halo disagrees with its plain "
+                  f"version: {res}")
+    for name in sorted(mc.CASES):
+        res = mc.check(name, device=dev)
+        say(f"[multichip_check] {mc.summary(res)}")
+        check(res["ok"], mc.summary(res))
+    # the decomposition's main path: every path at full width, the shards
+    # of each on this card one after another; at the 1D paths the halo
+    # entries are also held against their plain version on the same
+    # extended slabs
+    for mod in mc.HALO_ENTRIES.values():
+        mod.HALO_LAUNCHES = 0          # count the decomposition's launches only
+    halo_case = {"sc": "sc", "hcz": "hcz_wide", "fakhari": "fakhari",
+                 "scrt": "scrt", "hcz3d": "hcz3d"}
+    full = {}
+    for name in ("hcz_wide", "hcz2d", "sc", "sc2d", "fakhari", "scrt", "hcz3d"):
+        res = mc.check(name, device=dev, full=True, timing=True,
+                       plain=name in halo_case.values())
+        full[name] = res
+        cells = res["cells"]
+        say(f"[decomposition] {mc.summary(res)}")
+        say(f"[decomposition] {name}: {res['step_ms']:.5f} ms per step "
+            f"({cells / res['step_ms'] / 1e3:.1f} MLUPS) against the "
+            f"single-lattice kernel's {res['single_ms']:.5f} ms "
+            f"({cells / res['single_ms'] / 1e3:.1f} MLUPS); exchange "
+            f"{res['exchange_ms']:.5f} ms per step "
+            f"({100 * res['exchange_share']:.1f}% of the step), halo entries "
+            f"and crops {res['compute_ms']:.5f} ms; extended slabs "
+            f"{res['ext_cells']} cells, {res['bound_cells']:.0f} needed a "
+            f"sub-step on average, against {cells}; on {card}")
+        check(res["ok"], mc.summary(res))
+        if "plain_err" in res:
+            tol = res["plain_tol"]
+            say(f"[kernel vs plain] {name}: the halo entries on every "
+                f"shard's extended slab, float32 {res['nsub']} sub-steps: max "
+                f"abs err {res['plain_err']:.3e} (rtol {tol['rtol']}, atol "
+                f"{tol['atol']}) {'ok' if res['plain_ok'] else 'FAIL'}")
+            check(res["plain_ok"], f"{name}: the halo entries disagree with "
+                  f"their plain version at full width: {res['plain_err']}")
+    halo_launches = {f: mod.HALO_LAUNCHES
+                     for f, mod in mc.HALO_ENTRIES.items()}
+    check(all(v > 0 for v in halo_launches.values()),
+          f"a decomposed path did not launch its halo kernel: {halo_launches}")
+    say(f"[decomposition] phase 14 {time.perf_counter() - t14:.1f} s; halo "
+        f"launches {halo_launches}")
+
     # ---- 12. pulsatile main path ----
     recs_pl = {}
     for size in (384, 64):
@@ -946,12 +1032,12 @@ def main():
               rec_rti, rec_rti_plain, 2048 * 8194),
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
-              hcz3d_fused.LAUNCHES, err_hcz3d, rec_3d, rec_3d_plain, 128 ** 3),
+              hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain, 128 ** 3),
         entry("fakhari_step", "fakhari_step.cu",
               "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,
               err_fakhari, rec_fk, rec_fk_plain, n * n),
         entry("scrt_step", "scrt_step.cu",
-              "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_fused.LAUNCHES,
+              "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_launches,
               err_scrt, rec_rt, rec_rt_plain, n * (4 * n + 2)),
         entry("pulsatile_step", "pulsatile_step.cu",
               "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
@@ -962,6 +1048,21 @@ def main():
               combustion_launches, err_cb, *recs_cb[(420, False)], 420 * 80,
               combustion_work(bench.combustion_params(420))),
     ]
+    # the halo-in routes: the kernel on each shard's extended slab at the
+    # full-width decomposition of its family, held against its plain
+    # version there; bound by the cells each sub-step must keep valid
+    for family, base, line in (("sc", "sc_step", "pallas_sc.py:326"),
+                               ("hcz", "hcz_step", "pallas_hcz.py:318"),
+                               ("fakhari", "fakhari_step", "pallas_fakhari.py:354"),
+                               ("scrt", "scrt_step", "pallas_scrt.py:277"),
+                               ("hcz3d", "hcz3d_step", "pallas_hcz3d.py:299")):
+        res = full[halo_case[family]]
+        fn = "step_fused_halo_3d" if family == "hcz3d" else "step_fused_halo"
+        kernels.append(entry(
+            f"{base} ({fn})", f"{base}.cu", f"multiphase_lbm_tpu/ops/{line}",
+            halo_launches[family], res["plain_err"],
+            {"ms_per_step": res["compute_ms"]}, {"ms_per_step": res["plain_ms"]},
+            None, [res["bound_cells"] * v for v in WORK_PER_CELL[base]]))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

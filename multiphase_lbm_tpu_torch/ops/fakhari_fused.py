@@ -1,17 +1,22 @@
 """Fused Fakhari conservative phase-field D2Q9 step on the GPU: wrapper of
 ``csrc/fakhari_step.cu``.
 
-The counterpart of ``multiphase_lbm_tpu/ops/pallas_fakhari.py:run_fused``.
-The lattice is periodic, as there: there is no geometry argument.  On a
-CUDA tensor :func:`run_fused` launches the hand-written kernel once per
-step (a collide-and-stream pass, a φ pass and a velocity pass, plus one φ
-pass at the start of each call; see the source's header note) or raises;
-it never substitutes the plain path for a failed build or launch.  On a
-CPU tensor, and only there, it runs the plain PyTorch version
-(:func:`..models.fakhari.run`), which is what the CPU tests exercise.
+The counterpart of ``multiphase_lbm_tpu/ops/pallas_fakhari.py``:
+:func:`run_fused` of its ``run_fused`` and :func:`step_fused_halo` of its
+``step_fused_halo`` (``pallas_fakhari.py:354``), the halo-in entry of the
+lattice decomposition.  The lattice is periodic, as there: there is no
+geometry argument.  On a CUDA tensor both launch the hand-written kernel
+once per step (a collide-and-stream pass, a φ pass and a velocity pass,
+plus one φ pass at the start of each call; see the source's header note)
+or raise; they never substitute the plain path for a failed build or
+launch.  On a CPU tensor, and only there, they run the plain PyTorch
+version (:func:`..models.fakhari.run`, and :func:`step_halo_plain`), which
+is what the CPU tests exercise.
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step), so
-a run can show that its main path went through the kernel.
+``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
+process (one per step), and ``HALO_LAUNCHES`` those launched by
+:func:`step_fused_halo`, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -21,8 +26,14 @@ import torch
 
 from ..models import fakhari as fk
 from ..models.fakhari import FakhariParams
+from . import _halo
 
 LAUNCHES = 0
+HALO_LAUNCHES = 0
+# rows of validity one step consumes: the collision reads ∇φ, ∇²φ and the
+# stress two rows away, the streaming one more, and the velocity update
+# after it ∇φ of the streamed φ two more (pallas_fakhari.py:63)
+REACH = 5
 
 
 class _FakhariConst(ctypes.Structure):
@@ -67,7 +78,6 @@ def check_state(h, g, u):
 def run_fused(h, g, u, p: FakhariParams, n_steps: int):
     """Advance ``n_steps`` Fakhari steps on the periodic lattice; returns a
     new ``(h, g, u)``.  The caller's tensors are never written."""
-    global LAUNCHES
     check_state(h, g, u)
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
@@ -77,7 +87,14 @@ def run_fused(h, g, u, p: FakhariParams, n_steps: int):
         raise ValueError(f"no kernel for device {h.device}")
     if n_steps == 0:
         return h.clone(), g.clone(), u.clone()
+    return _launch(h, g, u, p, n_steps, halo_route=False)
 
+
+def _launch(h, g, u, p: FakhariParams, n_steps: int, halo_route: bool):
+    """``n_steps`` kernel steps on the CUDA tensors ``(h, g, u)``,
+    ping-ponging two new sets of buffers; counts each in ``HALO_LAUNCHES``
+    or ``LAUNCHES``."""
+    global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -99,6 +116,40 @@ def run_fused(h, g, u, p: FakhariParams, n_steps: int):
             if err != 0:
                 raise RuntimeError("fakhari_step launch failed: "
                                    + lib.sc_error_string(err).decode())
-            LAUNCHES += 1
+            if halo_route:
+                HALO_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
             src = dst
     return src
+
+
+def step_halo_plain(h_ext, g_ext, u_ext, p: FakhariParams, nsub: int = 1,
+                    halo=None):
+    """The plain version of :func:`step_fused_halo`, on any device:
+    ``nsub`` plain steps of the whole slab, then its interior rows."""
+    halo = _halo.check(halo, REACH, nsub, h_ext.shape[1], "rows")
+    out = fk.run((h_ext, g_ext, u_ext), p, nsub)
+    return tuple(_halo.interior(t, halo, 1) for t in out)
+
+
+def step_fused_halo(h_ext, g_ext, u_ext, p: FakhariParams, nsub: int = 1,
+                    halo=None):
+    """``nsub`` Fakhari steps on slabs whose halo rows are already filled;
+    returns the interior ``(h, g, u)``, each ``ny_ext − 2·halo`` rows.
+
+    ``halo`` rows on each side, at least ``REACH · nsub`` (the default); a
+    wider halo gives the same interior (the Pallas path rounds it up to 8
+    rows, a Mosaic sublane rule).  Like :func:`run_fused`, a call opens
+    with one φ pass over the whole slab.  The kernel wraps its row index at
+    the slab's edges; those rows reach at most ``REACH · nsub`` rows in, all
+    of them cropped.
+    """
+    check_state(h_ext, g_ext, u_ext)
+    halo = _halo.check(halo, REACH, nsub, h_ext.shape[1], "rows")
+    if h_ext.device.type == "cpu":
+        return step_halo_plain(h_ext, g_ext, u_ext, p, nsub, halo)
+    if h_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {h_ext.device}")
+    out = _launch(h_ext, g_ext, u_ext, p, nsub, halo_route=True)
+    return tuple(_halo.interior(t, halo, 1) for t in out)

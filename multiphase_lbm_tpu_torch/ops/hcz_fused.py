@@ -1,15 +1,20 @@
 """Fused HCZ phase-field D2Q9 step on the GPU: wrapper of ``csrc/hcz_step.cu``.
 
-The counterpart of ``multiphase_lbm_tpu/ops/pallas_hcz.py:run_fused``.  On a
-CUDA tensor :func:`run_fused` launches the hand-written kernel once per step
-(a φ pass, a ∇²φ pass and a collide-and-stream pass; see the source's header
-note) or raises; it never substitutes the plain path for a failed build or
-launch.  On a CPU tensor, and only there, it runs the plain PyTorch version
-(:func:`..models.hcz.run`), which is what the CPU tests exercise.  Any row
-count works: the kernel needs none of the Pallas path's 8-row padding.
+The counterpart of ``multiphase_lbm_tpu/ops/pallas_hcz.py``: :func:`run_fused`
+of its ``run_fused`` and :func:`step_fused_halo` of its ``step_fused_halo``
+(``pallas_hcz.py:318``), the halo-in entry of the lattice decomposition.  On
+a CUDA tensor both launch the hand-written kernel once per step (a φ pass, a
+∇²φ pass and a collide-and-stream pass; see the source's header note) or
+raise; they never substitute the plain path for a failed build or launch.
+On a CPU tensor, and only there, they run the plain PyTorch version
+(:func:`..models.hcz.run`, and :func:`step_halo_plain`), which is what the
+CPU tests exercise.  Any row count works: the kernel needs none of the
+Pallas path's 8-row padding.
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step), so
-a run can show that its main path went through the kernel.
+``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
+process (one per step), and ``HALO_LAUNCHES`` those launched by
+:func:`step_fused_halo`, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -19,8 +24,13 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
+from . import _halo
 
 LAUNCHES = 0
+HALO_LAUNCHES = 0
+# rows of validity one step consumes: ∇(∇²φ) reads two rows away and the
+# pull streaming one row more (pallas_hcz.py:39)
+REACH = 3
 
 
 class _HCZConst(ctypes.Structure):
@@ -82,7 +92,6 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
       fluid_f32: fluid mask ``(ny, nx)`` float32 (1.0 fluid / 0.0 solid).
     The caller's tensors are never written.
     """
-    global LAUNCHES
     check_state(f, g, 2, 9)
     _check_mask(f, fluid_f32)
     if n_steps < 0:
@@ -93,7 +102,14 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
         raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone(), g.clone()
+    return _launch(f, g, fluid_f32, p, n_steps, halo_route=False)
 
+
+def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
+    """``n_steps`` kernel steps on the CUDA tensors ``(f, g)``, ping-ponging
+    two new pairs of buffers; counts each in ``HALO_LAUNCHES`` or
+    ``LAUNCHES``."""
+    global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -118,6 +134,40 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
             if err != 0:
                 raise RuntimeError("hcz_step launch failed: "
                                    + lib.sc_error_string(err).decode())
-            LAUNCHES += 1
+            if halo_route:
+                HALO_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
             src = dst
     return src
+
+
+def step_halo_plain(f_ext, g_ext, fluid_ext_f32, p: HCZParams, nsub: int = 1,
+                    halo=None):
+    """The plain version of :func:`step_fused_halo`, on any device:
+    ``nsub`` plain steps of the whole slab, then its interior rows."""
+    halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
+    out = hcz.run((f_ext, g_ext), fluid_ext_f32 > 0.5, p, nsub)
+    return tuple(_halo.interior(t, halo, 1) for t in out)
+
+
+def step_fused_halo(f_ext, g_ext, fluid_ext_f32, p: HCZParams, nsub: int = 1,
+                    halo=None):
+    """``nsub`` HCZ 2D steps on slabs whose halo rows are already filled;
+    returns the interior ``(f, g)``, each ``(9, ny_ext − 2·halo, nx)``.
+
+    ``halo`` rows on each side, at least ``REACH · nsub`` (the default); a
+    wider halo gives the same interior.  The Pallas kernel's rounding to 8
+    rows is a Mosaic sublane rule and does not apply here.  The kernel runs
+    on the whole slab and wraps its row index at the slab's edges; those
+    rows reach at most ``REACH · nsub`` rows in, all of them cropped.
+    """
+    check_state(f_ext, g_ext, 2, 9)
+    _check_mask(f_ext, fluid_ext_f32)
+    halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
+    if f_ext.device.type == "cpu":
+        return step_halo_plain(f_ext, g_ext, fluid_ext_f32, p, nsub, halo)
+    if f_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f_ext.device}")
+    out = _launch(f_ext, g_ext, fluid_ext_f32, p, nsub, halo_route=True)
+    return tuple(_halo.interior(t, halo, 1) for t in out)

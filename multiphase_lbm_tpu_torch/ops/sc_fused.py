@@ -1,15 +1,19 @@
 """Fused Shan–Chen D2Q9 step on the GPU: wrapper of ``csrc/sc_step.cu``.
 
-The counterpart of ``multiphase_lbm_tpu/ops/pallas_sc.py:run_fused``.  On a
-CUDA tensor :func:`run_fused` launches the hand-written kernel once per step
-(a ψ pass and a collide-and-stream pass; see the source's header note) or
-raises; it never substitutes the plain path for a failed build or launch.
-On a CPU tensor, and only there, it runs the plain PyTorch version
-(:func:`..models.shan_chen.run`), which is what the CPU tests exercise.
+The counterpart of ``multiphase_lbm_tpu/ops/pallas_sc.py``: :func:`run_fused`
+of its ``run_fused`` and :func:`step_fused_halo` of its ``step_fused_halo``
+(``pallas_sc.py:326``), the halo-in entry of the lattice decomposition.  On
+a CUDA tensor both launch the hand-written kernel once per step (a ψ pass
+and a collide-and-stream pass; see the source's header note) or raise; they
+never substitute the plain path for a failed build or launch.  On a CPU
+tensor, and only there, they run the plain PyTorch version
+(:func:`..models.shan_chen.run`, and :func:`step_halo_plain`), which is
+what the CPU tests exercise.
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step,
-each a ψ launch plus a collide-and-stream launch), so a run can show that
-its main path went through the kernel.
+``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
+process (one per step, each a ψ launch plus a collide-and-stream launch),
+and ``HALO_LAUNCHES`` those launched by :func:`step_fused_halo`, so a run
+can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -21,8 +25,13 @@ from ..core import eos
 from ..core.collision import MRT_M_I, MRT_M_I_INV
 from ..models import shan_chen as sc
 from ..models.shan_chen import SCParams
+from . import _halo
 
 LAUNCHES = 0
+HALO_LAUNCHES = 0
+# rows of validity one step consumes: the force reads ψ one row away and
+# the pull streaming one row more
+REACH = 2
 
 
 class _SCConst(ctypes.Structure):
@@ -97,7 +106,6 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
       periodic: fully fluid domain; the kernel then reads no mask.
     The caller's ``f`` is never written.
     """
-    global LAUNCHES
     check_params(p)
     _check_state(f, fluid_f32)
     if n_steps < 0:
@@ -110,7 +118,14 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
         raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone()
+    return _launch(f, fluid_f32, p, n_steps, periodic, halo_route=False)
 
+
+def _launch(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool,
+            halo_route: bool):
+    """``n_steps`` kernel steps on the CUDA tensor ``f``, ping-ponging two
+    new buffers; counts each in ``HALO_LAUNCHES`` or ``LAUNCHES``."""
+    global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
     lib = _build.load()
@@ -133,6 +148,46 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
             if err != 0:
                 raise RuntimeError("sc_step launch failed: "
                                    + lib.sc_error_string(err).decode())
-            LAUNCHES += 1
+            if halo_route:
+                HALO_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
             src = dst
     return src
+
+
+def step_halo_plain(f_ext, fluid_ext_f32, p: SCParams, nsub: int = 1,
+                    halo=None):
+    """The plain version of :func:`step_fused_halo`, on any device:
+    ``nsub`` plain steps of the whole slab, then its interior rows."""
+    halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
+    return _halo.interior(sc.run(f_ext, fluid_ext_f32 > 0.5, p, nsub), halo, 1)
+
+
+def step_fused_halo(f_ext, fluid_ext_f32, p: SCParams, nsub: int = 1,
+                    halo=None):
+    """``nsub`` steps on a slab whose halo rows are already filled; returns
+    the interior ``(9, ny_ext − 2·halo, nx)``, a new tensor.
+
+    Args:
+      f_ext: populations ``(9, ny_ext, nx)`` with ``halo`` rows above and
+        below the shard's own rows (float32 or float64, contiguous).
+      fluid_ext_f32: the fluid mask of the same rows, float32.
+      halo: rows on each side, at least ``REACH · nsub`` (the default); a
+        wider halo gives the same interior.  The Pallas kernel's 8-row
+        minimum is a Mosaic sublane rule and does not apply here.
+    The kernel runs on the whole slab and wraps its row index at the slab's
+    edges; the rows that wrap reach at most ``REACH · nsub`` rows in, all of
+    them cropped.
+    """
+    check_params(p)
+    _check_state(f_ext, fluid_ext_f32)
+    halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
+    if f_ext.device.type == "cpu":
+        return step_halo_plain(f_ext, fluid_ext_f32, p, nsub, halo)
+    if f_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f_ext.device}")
+    return _halo.interior(
+        _launch(f_ext, fluid_ext_f32, p, nsub, periodic=False,
+                halo_route=True),
+        halo, 1)

@@ -1,19 +1,24 @@
 """Fused Shan–Chen Rayleigh–Taylor D2Q9 step on the GPU: wrapper of
 ``csrc/scrt_step.cu``.
 
-The counterpart of ``multiphase_lbm_tpu/ops/pallas_scrt.py:run_fused``.  The
-channel is implied, as there: rows 0 and ny − 1 are walls, x is periodic.
-On a CUDA tensor :func:`run_fused` launches the hand-written kernel once per
-step (a ψ pass and a collide-and-stream pass; see the source's header note)
-or raises; it never substitutes the plain path for a failed build or
-launch.  On a CPU tensor, and only there, it runs the plain PyTorch version
-(:func:`..models.shan_chen_rt.run` on the channel geometry), which is what
-the CPU tests exercise.  The lattice keeps the model's ``(9, ny, nx)``
-layout and its input's dtype (the Pallas path transposes, pads and casts to
-float32).
+The counterpart of ``multiphase_lbm_tpu/ops/pallas_scrt.py``:
+:func:`run_fused` of its ``run_fused`` and :func:`step_fused_halo` of its
+``step_fused_halo`` (``pallas_scrt.py:277``), the halo-in entry of the
+lattice decomposition.  The channel is implied, as there: rows 0 and
+ny − 1 are walls, x is periodic.  On a CUDA tensor both launch the
+hand-written kernel once per step (a ψ pass and a collide-and-stream pass;
+see the source's header note) or raise; they never substitute the plain
+path for a failed build or launch.  On a CPU tensor, and only there, they
+run the plain PyTorch version (:func:`..models.shan_chen_rt.run` on the
+channel geometry, and :func:`step_halo_plain`), which is what the CPU tests
+exercise.  The lattice keeps the model's ``(9, ny, nx)`` layout and its
+input's dtype (the Pallas path transposes, pads and casts to float32), so
+the halo entry cuts x, the last axis, and keeps the walled y whole.
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step), so
-a run can show that its main path went through the kernel.
+``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
+process (one per step), and ``HALO_LAUNCHES`` those launched by
+:func:`step_fused_halo`, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -23,8 +28,13 @@ import torch
 
 from ..models import shan_chen_rt as rt
 from ..models.shan_chen_rt import SCRTParams
+from . import _halo
 
 LAUNCHES = 0
+HALO_LAUNCHES = 0
+# columns of validity one step consumes: the force reads ψ one column away
+# and the pull streaming one column more
+REACH = 2
 
 
 class _SCRTConst(ctypes.Structure):
@@ -60,7 +70,6 @@ def run_fused(f, p: SCRTParams, n_steps: int):
     """Advance ``n_steps`` SC-RT steps on the channel; returns a new ``f``
     (``(9, ny, nx)``, the input's dtype, wall rows zero).  The caller's
     tensor is never written."""
-    global LAUNCHES
     check_state(f)
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
@@ -72,12 +81,19 @@ def run_fused(f, p: SCRTParams, n_steps: int):
         raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone()
+    return _launch(f, p, n_steps, halo_route=False)
 
+
+def _launch(f, p: SCRTParams, n_steps: int, halo_route: bool):
+    """``n_steps`` kernel steps on the CUDA tensor ``f``, ping-ponging two
+    new buffers; counts each in ``HALO_LAUNCHES`` or ``LAUNCHES``."""
+    global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
     lib = _build.load()
     step = lib.scrt_step_f32 if f.dtype == torch.float32 else lib.scrt_step_f64
     consts = kernel_constants(p)
+    _, ny, nx = f.shape
     bufs = (torch.empty_like(f), torch.empty_like(f))
     psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
     src = f
@@ -92,6 +108,39 @@ def run_fused(f, p: SCRTParams, n_steps: int):
             if err != 0:
                 raise RuntimeError("scrt_step launch failed: "
                                    + lib.sc_error_string(err).decode())
-            LAUNCHES += 1
+            if halo_route:
+                HALO_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
             src = dst
     return src
+
+
+def step_halo_plain(f_ext, p: SCRTParams, nsub: int = 1, halo=None):
+    """The plain version of :func:`step_fused_halo`, on any device:
+    ``nsub`` plain steps of the whole slab, then its interior columns."""
+    _, ny, nx_ext = f_ext.shape
+    halo = _halo.check(halo, REACH, nsub, nx_ext, "columns")
+    out = rt.run(f_ext, rt.geometry_channel(nx_ext, ny, device=f_ext.device),
+                 p, nsub)
+    return _halo.interior(out, halo, 2)
+
+
+def step_fused_halo(f_ext, p: SCRTParams, nsub: int = 1, halo=None):
+    """``nsub`` SC-RT steps on a channel slab whose halo columns are
+    already filled; returns the interior ``(9, ny, nx_ext − 2·halo)``.
+
+    ``f_ext`` is ``(9, ny, nx_loc + 2·halo)``: the periodic x axis is cut
+    and the walled y axis is whole, as the Pallas path's transposed
+    ``(9, nx, ny_pad)`` slab holds it.  ``halo`` columns on each side, at
+    least ``REACH · nsub`` (the default); a wider halo gives the same
+    interior.  The kernel wraps its column index at the slab's edges; those
+    columns reach at most ``REACH · nsub`` columns in, all of them cropped.
+    """
+    check_state(f_ext)
+    halo = _halo.check(halo, REACH, nsub, f_ext.shape[2], "columns")
+    if f_ext.device.type == "cpu":
+        return step_halo_plain(f_ext, p, nsub, halo)
+    if f_ext.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f_ext.device}")
+    return _halo.interior(_launch(f_ext, p, nsub, halo_route=True), halo, 2)
