@@ -120,15 +120,21 @@ float64 (atol 1e-12, identical fluid maps), 27 float64 steps (steps 2-28,
 which hold no order-dependent reseed step; atol 1e-10, identical fluid
 maps), and one float32 step at N = 384 from the bench's warmed state.
 14. decomposition (runs after phase 13, before phase 12's worker window) —
-     each halo-in entry (step_fused_halo of sc, hcz, fakhari and scrt,
-     step_fused_halo_3d of hcz3d: the family's kernel launched nsub times on
-     a shard's halo-extended slab) against its plain version on a 64-row
-     shard's slab at ω ≠ 1, float32 over 5 sub-steps (the family's kernel
-     tolerance) and float64 over 20 (atol 1e-12); the validation.multichip_check
-     subcommands at their default sizes (4 shards on this card); then the
-     decomposition's main path, every path at full width against the
-     single-lattice kernel run of as many steps from the same state, max
-     |diff| <= 1e-6 (0 expected: the same per-cell arithmetic):
+     each halo-in entry (step_fused_halo of sc, hcz, fakhari, scrt and
+     combustion, step_fused_halo_3d of hcz3d: the family's kernel launched
+     nsub times on a shard's halo-extended slab, combustion's in its slab
+     mode) against its plain version on a 64-row shard's slab at ω ≠ 1,
+     float32 over 5 sub-steps (the family's kernel tolerance) and float64
+     over 20 (atol 1e-12), combustion also at 1 and 2 float32 sub-steps,
+     flow only and in the lid cavity; the validation.multichip_check
+     subcommands at their default sizes (4 shards on this card), with the
+     narrow combustion case (128 × 20, 4 shards of 5 rows, nsub 1) also
+     held against the halo entry's plain version on every shard's slab;
+     then the decomposition's main path, every path at full width against
+     the single-lattice kernel run of as many steps from the same state, max
+     |diff| <= 1e-6 (0 expected: the same per-cell arithmetic; combustion
+     over the cells where the model defines each field, and bit-identity
+     reported):
      make_fused_hcz_step on RTI-2048 over 2 y shards (8194 rows do not
      divide by 4), nsub 5, 100 steps; make_fused_hcz_step_2d on RTI-2048
      over 2 × 2, nsub 2, 40 steps; make_fused_sc_step on the walled 2048² SC
@@ -137,14 +143,16 @@ maps), and one float32 step at N = 384 from the bench's warmed state.
      make_fused_fakhari_step on the 2048² bubble over 4 y shards, nsub 2,
      100 steps; make_fused_scrt_step on SC-RT 2048 × 8194 over 4 x shards,
      nsub 2, 100 steps; make_fused_hcz3d_step on the 128³ droplet over 4 z
-     shards, nsub 2, 50 steps.  Each prints its ms per step and MLUPS
+     shards, nsub 2, 50 steps; make_fused_combustion_step on the 840 × 160
+     channel after the bench's 2N warm-up over 4 y shards, nsub 2, 100
+     steps.  Each prints its ms per step and MLUPS
      beside the single-lattice kernel's, the exchange's share of the step
      and the halo entries' time (CUDA events, not gated: shards on one card
      run one after another, so this measures overhead, not scaling).
 Each kernel's launch count is set to 0 just before its own main path
 (phases 4-5, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
 routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
-the paths, the five halo routes included, and, last,
+the paths, the six halo routes included, and, last,
 {"ok": true, "device": {...}}.
 """
 import concurrent.futures
@@ -180,71 +188,30 @@ COMBUSTION_F32_TOL = dict(rtol=2e-5, atol=2e-6)
 # outside the tensor cores (the kernels use none).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# Per cell and step in float32: the bytes the step must move (each input
-# read once, each output written once) and the floating-point operations it
-# must do (each field formed once per cell), counted from the arithmetic of
-# the step: sc_step reads and writes 9 populations (no mask when periodic);
-# hcz_step reads and writes 2 × 9 populations and reads the mask; hcz3d_step
-# reads and writes 2 × 19 populations; fakhari_step reads and writes h, g
-# (2 × 9) and u (2), and forms the fields, the stress and the force twice
-# (before the collision and after the streaming); scrt_step reads and writes
-# 9 populations (the walls follow from the row index); pulsatile_step reads
-# g_coll at fluid cells or g_stream at solid ones and the macros, and writes
-# gout, g2 and the macros (132 B), with about 260 operations in the
-# collision (equilibrium, the 9 × 9 moment product), 55 in the streamed
-# sums and 15 in the geometry (the Bouzidi links and the reseed touch O(nx)
-# cells); combustion_step depends on the lattice's flags (combustion_work).
-WORK_PER_CELL = {"sc_step": (72, 200), "hcz_step": (148, 600),
-                 "hcz3d_step": (304, 1300), "fakhari_step": (160, 750),
-                 "scrt_step": (72, 300), "pulsatile_step": (132, 330)}
+# The work of one step in float32: the bytes it must move (each input read
+# once, each output written once) and the floating-point operations it must
+# do (each field formed once per cell), counted from the arithmetic of the
+# step: the cells times the wrapper's WORK_PER_CELL (per_cell), or
+# combustion_fused.step_work, which counts them from the lattice's flags.
 
 
-def bound(name, cells, work=None):
+def per_cell(mod, cells):
+    """(bytes, operations) of one step of ``mod``'s kernel on ``cells``
+    cells."""
+    return tuple(cells * v for v in mod.WORK_PER_CELL)
+
+
+def bound(work):
     """(bound_ms, bound_by): the least time the card could take for one
-    step on ``cells`` cells, the larger of bytes over the memory rate and
-    operations over the float32 rate; ``work``, the (bytes, operations) of
-    the whole step where they depend on the data, replaces ``cells`` times
-    WORK_PER_CELL.  For a state that fits in the 50 MB L2 (combustion at
-    420 × 80 and 840 × 160) the bytes stay in L2 from step to step, so this
-    device-memory bound is an upper estimate of the floor."""
-    nbytes, flops = work or [cells * v for v in WORK_PER_CELL[name]]
+    step of ``work`` (bytes, operations), the larger of bytes over the
+    memory rate and operations over the float32 rate.  For a state that
+    fits in the 50 MB L2 (combustion at 420 × 80 and 840 × 160) the bytes
+    stay in L2 from step to step, so this device-memory bound is an upper
+    estimate of the floor."""
+    nbytes, flops = work
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def combustion_work(p, konv=True):
-    """(bytes, operations) that one combustion_step step with all four
-    populations (``konv``) must move and do on ``p``'s lattice in float32,
-    in the timed window (li2014, no first step), counted from its flags:
-    f, g_O2, g_CO2 and g_T read and written (288 B a cell); the three
-    forcing terms written at every cell (108 B) and read at the bulk cells
-    only, where a step reads them (108 B a bulk cell); g_coll written at
-    every cell (36 B) and read across the gas-obstacle interface only, one
-    value per directed interface link (a link's conjugate fix and its
-    reverse's read the same two values); the flags and ck_n (1 + 9 B a
-    cell); the momentum-exchange populations of column 0 and row ny - 1
-    (36 B a cell of them).  About 1,500 operations a cell (five 9 × 9 MRT
-    products, four equilibria, the forcing terms, five one-sided gradients,
-    nine interface mass fractions and the Arrhenius rate); the boundary
-    phase touches O(nx + ny) cells in place.  Flow only: f read and written
-    and the flags (73 B a cell), the momentum-exchange populations, and
-    about 250 operations a cell (the moments, one equilibrium, one 9 × 9
-    MRT product)."""
-    from multiphase_lbm_tpu_torch.models import combustion as cbm
-    flags, _ = cbm.build_geometry(p)
-    fl = torch.as_tensor(flags)
-    gas, obst = fl == cbm.BULK, fl == cbm.OBSTACLE
-    links = 0
-    for cx, cy in cbm.C[1:]:
-        shift = (int(cy), int(cx))     # the flag of the upstream cell r − c
-        links += int(((obst & torch.roll(gas, shift, (0, 1)))
-                      | (gas & torch.roll(obst, shift, (0, 1)))).sum())
-    if not konv:
-        return fl.numel() * 73 + 36 * (p.nx + p.ny), fl.numel() * 250
-    nbytes = (fl.numel() * (288 + 108 + 36 + 10) + int(gas.sum()) * 108
-              + links * 4 + 36 * (p.nx + p.ny))
-    return nbytes, fl.numel() * 1500
 
 
 def say(msg):
@@ -822,8 +789,7 @@ def main():
         check(fin > 0 and fout > 0, f"combustion mass flux {fin}, {fout}")
         check(math.isfinite(energy), f"combustion thermal energy {energy}")
         recs_cb[(size, flow_only)].insert(0, rec_k)
-        bound_ms, _ = bound("combustion_step", None,
-                            combustion_work(pc, not flow_only))
+        bound_ms, _ = bound(combustion_fused.step_work(pc, not flow_only))
         say(f"[main path] kernel {rec_k['value']:.1f} MLUPS "
             f"({rec_k['ms_per_step']:.5f} ms per step, bound {bound_ms:.6f}"
             f" ms) vs plain "
@@ -883,10 +849,44 @@ def main():
                 f"{'ok' if ok else 'FAIL'}")
             check(ok, f"{family} step_fused_halo disagrees with its plain "
                   f"version: {res}")
+    # all four populations (the channel's wall-row and outlet fixes at the
+    # slab's global rows), flow only and the lid cavity
+    for variant, dtype, nsub in (("konv", torch.float32, 1),
+                                 ("konv", torch.float32, 2),
+                                 ("konv", torch.float32, 5),
+                                 ("konv", torch.float64, 20),
+                                 ("flow", torch.float32, 5),
+                                 ("flow", torch.float64, 20),
+                                 ("cavity", torch.float32, 5),
+                                 ("cavity", torch.float64, 20)):
+        res = mc.check_halo_entry("combustion", dtype, nsub, dev, variant)
+        torch.cuda.synchronize()
+        ok = (res["ok"] and res["launched"] == nsub
+              and res["launched_main"] == 0)
+        say(f"[kernel vs plain] combustion step_fused_halo {variant} "
+            f"{str(dtype)[6:]} {nsub} sub-steps: max abs err "
+            f"{res['max_abs_err']:.3e} (rtol {res['tol']['rtol']}, atol "
+            f"{res['tol']['atol']}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"combustion step_fused_halo {variant} disagrees with its "
+              f"plain version: {res}")
     for name in sorted(mc.CASES):
         res = mc.check(name, device=dev)
         say(f"[multichip_check] {mc.summary(res)}")
         check(res["ok"], mc.summary(res))
+    # the narrow combustion case: cuts within the exchange width of both
+    # wall rows and through the obstacles; the halo entries on every
+    # shard's slab against their plain version
+    case, _ = mc.make_case("combustion_narrow", dev)
+    state, static = mc._shards(case)
+    ext = case.step.exchange(*state, *static)
+    res = mc.against_plain(case, ext, case.step.compute(*ext))
+    say(f"[kernel vs plain] combustion_narrow: the halo entries on every "
+        f"shard's slab, float32 1 sub-step: max abs err {res['plain_err']:.3e}"
+        f" (rtol {res['plain_tol']['rtol']}, atol {res['plain_tol']['atol']}) "
+        f"{'ok' if res['plain_ok'] else 'FAIL'}")
+    check(res["plain_ok"], f"combustion_narrow: the halo entries disagree "
+          f"with their plain version: {res}")
+    del case, state, ext
     # the decomposition's main path: every path at full width, the shards
     # of each on this card one after another; at the 1D paths the halo
     # entries are also held against their plain version on the same
@@ -894,9 +894,10 @@ def main():
     for mod in mc.HALO_ENTRIES.values():
         mod.HALO_LAUNCHES = 0          # count the decomposition's launches only
     halo_case = {"sc": "sc", "hcz": "hcz_wide", "fakhari": "fakhari",
-                 "scrt": "scrt", "hcz3d": "hcz3d"}
+                 "scrt": "scrt", "hcz3d": "hcz3d", "combustion": "combustion"}
     full = {}
-    for name in ("hcz_wide", "hcz2d", "sc", "sc2d", "fakhari", "scrt", "hcz3d"):
+    for name in ("hcz_wide", "hcz2d", "sc", "sc2d", "fakhari", "scrt", "hcz3d",
+                 "combustion"):
         res = mc.check(name, device=dev, full=True, timing=True,
                        plain=name in halo_case.values())
         full[name] = res
@@ -1014,9 +1015,8 @@ def main():
     check(err_s < womersley.GATE_STEADY and err_o < womersley.GATE_OSC,
           f"the core channel misses its gates: {err_s}, {err_o}")
 
-    def entry(name, source, replaces, launches, err, rec_k, rec_p, cells,
-              work=None):
-        bound_ms, bound_by = bound(name, cells, work)
+    def entry(name, source, replaces, launches, err, rec_k, rec_p, work):
+        bound_ms, bound_by = bound(work)
         return {"name": name, "route": "cuda",
                 "source": f"multiphase_lbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
@@ -1026,43 +1026,48 @@ def main():
 
     kernels = [
         entry("sc_step", "sc_step.cu", "multiphase_lbm_tpu/ops/pallas_sc.py:55",
-              sc_launches, err_sc, rec, rec_plain, n * n),
+              sc_launches, err_sc, rec, rec_plain, per_cell(sc_fused, n * n)),
         entry("hcz_step", "hcz_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz.py:42", hcz_launches, err_hcz,
-              rec_rti, rec_rti_plain, 2048 * 8194),
+              rec_rti, rec_rti_plain, per_cell(hcz_fused, 2048 * 8194)),
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
-              hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain, 128 ** 3),
+              hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain,
+              per_cell(hcz3d_fused, 128 ** 3)),
         entry("fakhari_step", "fakhari_step.cu",
               "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,
-              err_fakhari, rec_fk, rec_fk_plain, n * n),
+              err_fakhari, rec_fk, rec_fk_plain, per_cell(fakhari_fused, n * n)),
         entry("scrt_step", "scrt_step.cu",
               "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_launches,
-              err_scrt, rec_rt, rec_rt_plain, n * (4 * n + 2)),
+              err_scrt, rec_rt, rec_rt_plain,
+              per_cell(scrt_fused, n * (4 * n + 2))),
         entry("pulsatile_step", "pulsatile_step.cu",
               "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
               pulsatile_launches, err_pulsatile, *recs_pl[384],
-              pbig.nx * pbig.ny),
+              per_cell(pulsatile_fused, pbig.nx * pbig.ny)),
         entry("combustion_step", "combustion_step.cu",
               "multiphase_lbm_tpu/ops/pallas_combustion.py:171",
-              combustion_launches, err_cb, *recs_cb[(420, False)], 420 * 80,
-              combustion_work(bench.combustion_params(420))),
+              combustion_launches, err_cb, *recs_cb[(420, False)],
+              combustion_fused.step_work(bench.combustion_params(420))),
     ]
     # the halo-in routes: the kernel on each shard's extended slab at the
     # full-width decomposition of its family, held against its plain
-    # version there; bound by the cells each sub-step must keep valid
+    # version there; bound by the work of the cells each sub-step must keep
+    # valid (multichip_check.halo_bound_work)
     for family, base, line in (("sc", "sc_step", "pallas_sc.py:326"),
                                ("hcz", "hcz_step", "pallas_hcz.py:318"),
                                ("fakhari", "fakhari_step", "pallas_fakhari.py:354"),
                                ("scrt", "scrt_step", "pallas_scrt.py:277"),
-                               ("hcz3d", "hcz3d_step", "pallas_hcz3d.py:299")):
+                               ("hcz3d", "hcz3d_step", "pallas_hcz3d.py:299"),
+                               ("combustion", "combustion_step",
+                                "pallas_combustion.py:845")):
         res = full[halo_case[family]]
         fn = "step_fused_halo_3d" if family == "hcz3d" else "step_fused_halo"
         kernels.append(entry(
             f"{base} ({fn})", f"{base}.cu", f"multiphase_lbm_tpu/ops/{line}",
             halo_launches[family], res["plain_err"],
             {"ms_per_step": res["compute_ms"]}, {"ms_per_step": res["plain_ms"]},
-            None, [res["bound_cells"] * v for v in WORK_PER_CELL[base]]))
+            res["bound_work"]))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

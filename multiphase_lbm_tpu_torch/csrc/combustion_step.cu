@@ -40,6 +40,19 @@
 //      non-bulk cell), and otherwise the upstream cell pushes its
 //      post-collision value.
 // Every neighbour read wraps modulo nx and ny, as the model's rolls do.
+//
+// Slab mode (the halo-in entry, pallas_combustion.step_fused_halo): the
+// buffers hold ny rows of a lattice of ny_glob rows, local row 0 being global
+// row row0 (0 <= row0 < ny_glob, ny <= ny_glob).  Each row's role is decided
+// by its global row g = (row0 + y) mod ny_glob: the flow outlet on
+// 1 <= g <= ny_glob − 2, the wall-row fixes at g = 1 and g = ny_glob − 2, the
+// lid's momentum exchange at g = ny_glob − 1; the wall-row fixes read the
+// local rows next to them (y ± 1, y ± 2, wrapping mod ny).  Each row of the
+// slab then evolves as that global row does in the whole-lattice run, which
+// wraps in y too, except that reads across the slab's edges wrap to its
+// other edge: that reaches REACH rows in a step (ops/combustion_fused.py),
+// all of them cropped by the caller.  The whole lattice is the slab
+// row0 = 0, ny_glob = ny: one code path for both entries.
 // Solid cells carry NaN in u and in the forcing terms, as in the model:
 // every mask is a selection, never a product.  The flags, the interface
 // normal factors ck_n (small integers, int8) and the momentum-exchange
@@ -104,6 +117,18 @@ __host__ __device__ __forceinline__ constexpr bool west(int k) {
 
 __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+
+// the global row of local row y (0 <= y < ny <= ny_glob, 0 <= row0 < ny_glob)
+__device__ __forceinline__ int global_row(int y, int row0, int ny_glob) {
+  const int g = row0 + y;
+  return g >= ny_glob ? g - ny_glob : g;
+}
+
+// the local row that holds global row g, or −1 when the slab has none
+__device__ __forceinline__ int local_row(int g, int row0, int ny, int ny_glob) {
+  const int y = g - row0 < 0 ? g - row0 + ny_glob : g - row0;
+  return y < ny ? y : -1;
 }
 
 // pop − A (pop − eq), A row-major 9 × 9
@@ -171,13 +196,19 @@ __device__ __forceinline__ void flow_macro(const T* f, const CombustionConst& c,
 //      nx − 1 and the post-row-fix sums of columns nx − 2, nx − 3, with u
 //      from the outlet-fixed flow of step 0.
 // Sub-phases are separated by __syncthreads(); the thread loops cover rows
-// and columns of any length.
+// and columns of any length.  Rows are global (see the slab mode above): B
+// and A's amp_top act only where the slab holds row ny − 2 (local yt), C
+// only where it holds row 1 (local yb), F at whichever of the two it holds.
 template <typename T>
 __global__ void __launch_bounds__(BC_THREADS)
     boundary_kernel(T* __restrict__ s, T* __restrict__ amp_top,
-                    T* __restrict__ amp_out, int ny, int nx, CombustionConst c) {
+                    T* __restrict__ amp_out, int ny, int nx, int row0,
+                    int ny_glob, CombustionConst c) {
   const size_t n = (size_t)ny * nx;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int G = ny_glob;
+  const int yt = local_row(G - 2, row0, ny, G);  // top wall row, or −1
+  const int yb = local_row(1, row0, ny, G);      // bottom wall row, or −1
   auto at = [&](int plane, int k, int y, int x) -> T& {
     return s[((size_t)plane * 9 + k) * n + (size_t)y * nx + x];
   };
@@ -190,7 +221,8 @@ __global__ void __launch_bounds__(BC_THREADS)
 
   // ---- 0. flow outlet ----
   for (int y = tid; y < ny; y += nt) {
-    if (y < 1 || y > ny - 2) continue;
+    const int g = global_row(y, row0, G);
+    if (g < 1 || g > G - 2) continue;
     T r1 = T(0), mx1 = T(0), my1 = T(0), r2 = T(0), mx2 = T(0), my2 = T(0);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
@@ -208,7 +240,7 @@ __global__ void __launch_bounds__(BC_THREADS)
     T col[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) col[k] = at(P_F, k, y, nx - 1);
-    if (y > 1 && y < ny - 2) {
+    if (g > 1 && g < G - 2) {
       const T usqr = ux * ux + uy * uy;  // the reference's un-scaled u²
       T feq[9];
 #pragma unroll
@@ -228,7 +260,7 @@ __global__ void __launch_bounds__(BC_THREADS)
       at(P_F, 6, y, nx - 1) = feq[6] - T(wk(6)) * (e1 - e2);
       at(P_F, 7, y, nx - 1) = feq[7] - T(wk(7)) * (e1 + e2);
     } else {  // the corners, y = 1 (bottom) and y = ny − 2 (top)
-      const bool bottom = y == 1;
+      const bool bottom = g == 1;
       const T f8 = bottom ? (rho + rho * ux - T(2.0 / 3.0) * rho * uy -
                              col[0] - T(2) * (col[1] + col[4] + col[8])) / T(2)
                           : (rho + rho * ux + T(2.0 / 3.0) * rho * uy -
@@ -254,10 +286,10 @@ __global__ void __launch_bounds__(BC_THREADS)
       if (i < ny)
         amp_out[p * ny + i] =
             (T(4) * sum9(plane, i, nx - 2) - sum9(plane, i, nx - 3)) / T(3);
-      if (i >= nx) continue;
+      if (i >= nx || yt < 0) continue;
       T top[2];  // the sums of rows ny − 3 and ny − 4 that the row reads
       for (int r = 0; r < 2; ++r) {
-        const int y = ny - 3 - r;
+        const int y = wrap(yt - 1 - r, ny);
         T m = sum9(plane, y, i);
         if (i == 1 || i == nx - 1) {
           // the column's own fix (inlet at x = 1, outlet at nx − 1) first
@@ -282,25 +314,26 @@ __global__ void __launch_bounds__(BC_THREADS)
   __syncthreads();
 
   // ---- B. top row ny − 2 ----
-  for (int x = tid; x < nx; x += nt)
+  for (int x = tid; x < nx && yt >= 0; x += nt)
     for (int p = 0; p < 3; ++p) {
       const int plane = P_O2 + p;
       const T amp = amp_top[p * nx + x];
-      const int y = ny - 2;
+      const int y = yt;
       at(plane, 7, y, x) = -at(plane, 5, y, x) + T(c.w2[7]) * amp;
       at(plane, 4, y, x) = -at(plane, 2, y, x) + T(c.w2[2]) * amp;
       at(plane, 8, y, x) = -at(plane, 6, y, x) + T(c.w2[6]) * amp;
     }
   __syncthreads();
 
-  // ---- C. bottom row 1, from the sums after B ----
-  for (int x = tid; x < nx; x += nt)
+  // ---- C. bottom row 1, from the sums of rows 2 and 3 after B ----
+  for (int x = tid; x < nx && yb >= 0; x += nt)
     for (int p = 0; p < 3; ++p) {
       const int plane = P_O2 + p;
-      const T amp = (T(4) * sum9(plane, 2, x) - sum9(plane, 3, x)) / T(3);
-      at(plane, 6, 1, x) = -at(plane, 8, 1, x) + T(c.w2[8]) * amp;
-      at(plane, 2, 1, x) = -at(plane, 4, 1, x) + T(c.w2[4]) * amp;
-      at(plane, 5, 1, x) = -at(plane, 7, 1, x) + T(c.w2[7]) * amp;
+      const T amp = (T(4) * sum9(plane, wrap(yb + 1, ny), x) -
+                     sum9(plane, wrap(yb + 2, ny), x)) / T(3);
+      at(plane, 6, yb, x) = -at(plane, 8, yb, x) + T(c.w2[8]) * amp;
+      at(plane, 2, yb, x) = -at(plane, 4, yb, x) + T(c.w2[4]) * amp;
+      at(plane, 5, yb, x) = -at(plane, 7, yb, x) + T(c.w2[7]) * amp;
     }
   __syncthreads();
 
@@ -318,7 +351,7 @@ __global__ void __launch_bounds__(BC_THREADS)
   // ---- E. outlet column nx − 1 ----
   for (int y = tid; y < ny; y += nt)
     for (int p = 0; p < 3; ++p) {
-      if (p < 2 && (y == 1 || y == ny - 2)) continue;  // species corners
+      if (p < 2 && (y == yb || y == yt)) continue;  // species corners
       const int plane = P_O2 + p;
       const T amp = amp_out[p * ny + y];
       at(plane, 6, y, nx - 1) = -at(plane, 8, y, nx - 1) + T(c.w2[8]) * amp;
@@ -331,7 +364,8 @@ __global__ void __launch_bounds__(BC_THREADS)
   for (int t4 = tid; t4 < 4; t4 += nt) {
     const int plane = P_O2 + (t4 & 1);
     const bool bottom = t4 < 2;
-    const int y = bottom ? 1 : ny - 2;
+    const int y = bottom ? yb : yt;
+    if (y < 0) continue;
     T colc[9], fc[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
@@ -447,7 +481,7 @@ __global__ void __launch_bounds__(256)
                           const T* __restrict__ fs_row,
                           const T* __restrict__ mats_g,
                           const T* __restrict__ fld, int ny, int nx,
-                          CombustionConst c) {
+                          int row0, int ny_glob, CombustionConst c) {
   __shared__ T mats[NMAT * 81];
   for (int t = threadIdx.x; t < NMAT * 81; t += blockDim.x) mats[t] = mats_g[t];
   __syncthreads();
@@ -534,7 +568,9 @@ __global__ void __launch_bounds__(256)
           const int ko = opp(k);
           const int uy_ = (int)(nbm[k] / nx), ux_ = (int)(nbm[k] - (size_t)uy_ * nx);
           const T fs = ux_ == 0 ? fs_col[ko * ny + uy_]
-                                : (uy_ == ny - 1 ? fs_row[ko * nx + ux_] : T(0));
+                                : (global_row(uy_, row0, ny_glob) == ny_glob - 1
+                                       ? fs_row[ko * nx + ux_]
+                                       : T(0));
           D(P_F, k, i) = post[ko] + fs;
         }
         // sender: push into a bulk neighbour that is not pinned
@@ -683,8 +719,9 @@ __global__ void __launch_bounds__(256)
 template <typename T>
 int run_steps(T* a, T* b, const int8_t* flags, const int8_t* ckn,
               const T* fs_col, const T* fs_row, const T* mats, T* fld,
-              T* scratch, int ny, int nx, int n_steps, int first_mode,
-              const CombustionConst* c, cudaStream_t stream) {
+              T* scratch, int ny, int nx, int row0, int ny_glob,
+              int n_steps, int first_mode, const CombustionConst* c,
+              cudaStream_t stream) {
   const size_t n = (size_t)ny * nx;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
@@ -695,7 +732,7 @@ int run_steps(T* a, T* b, const int8_t* flags, const int8_t* ckn,
     const bool first = first_mode == 2 || (first_mode == 1 && s == 0);
     if (c->io) {
       boundary_kernel<T><<<1, BC_THREADS, 0, stream>>>(
-          src, scratch, scratch + 3 * nx, ny, nx, *c);
+          src, scratch, scratch + 3 * nx, ny, nx, row0, ny_glob, *c);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -706,7 +743,8 @@ int run_steps(T* a, T* b, const int8_t* flags, const int8_t* ckn,
       if (err != cudaSuccess) return (int)err;
     }
     collide_stream_kernel<T><<<blocks, threads, 0, stream>>>(
-        src, dst, flags, ckn, fs_col, fs_row, mats, fld, ny, nx, *c);
+        src, dst, flags, ckn, fs_col, fs_row, mats, fld, ny, nx, row0,
+        ny_glob, *c);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -717,35 +755,38 @@ int run_steps(T* a, T* b, const int8_t* flags, const int8_t* ckn,
 
 extern "C" {
 
-// n_steps steps of the (8, 9, ny, nx) state: a holds the input and is
-// written in place by the boundary phase; the result is in a when n_steps
-// is even, else in b.  flags (ny, nx) and ck_n (9, ny, nx) int8; fs_col
-// (9, ny) and fs_row (9, nx) the momentum-exchange populations of column 0
-// and row ny − 1; mats (6, 9, 9); fld (5, ny, nx) and scratch (3 (nx + ny))
-// are work space.  Returns the cudaError_t of the launches (0 on success).
+// n_steps steps of the (8, 9, ny, nx) state, rows row0 .. row0 + ny − 1
+// (mod ny_glob) of a lattice of ny_glob rows (row0 = 0, ny_glob = ny: the
+// whole lattice; the caller keeps 0 <= row0 < ny_glob and ny <= ny_glob): a
+// holds the input and is written in place by the boundary phase; the result
+// is in a when n_steps is even, else in b.  flags (ny, nx) and ck_n
+// (9, ny, nx) int8 and fs_col (9, ny), the momentum-exchange populations of
+// column 0, of the slab's rows; fs_row (9, nx) those of global row
+// ny_glob − 1; mats (6, 9, 9); fld (5, ny, nx) and scratch (3 (nx + ny)) are
+// work space.  Returns the cudaError_t of the launches (0 on success).
 int combustion_run_f32(void* a, void* b, const void* flags, const void* ckn,
                        const void* fs_col, const void* fs_row,
                        const void* mats, void* fld, void* scratch, int ny,
-                       int nx, int n_steps, int first_mode, const void* consts,
-                       void* stream) {
+                       int nx, int row0, int ny_glob, int n_steps,
+                       int first_mode, const void* consts, void* stream) {
   return run_steps<float>((float*)a, (float*)b, (const int8_t*)flags,
                           (const int8_t*)ckn, (const float*)fs_col,
                           (const float*)fs_row, (const float*)mats,
-                          (float*)fld, (float*)scratch, ny, nx, n_steps,
-                          first_mode, (const CombustionConst*)consts,
+                          (float*)fld, (float*)scratch, ny, nx, row0,
+                          ny_glob, n_steps, first_mode, (const CombustionConst*)consts,
                           (cudaStream_t)stream);
 }
 
 int combustion_run_f64(void* a, void* b, const void* flags, const void* ckn,
                        const void* fs_col, const void* fs_row,
                        const void* mats, void* fld, void* scratch, int ny,
-                       int nx, int n_steps, int first_mode, const void* consts,
-                       void* stream) {
+                       int nx, int row0, int ny_glob, int n_steps,
+                       int first_mode, const void* consts, void* stream) {
   return run_steps<double>((double*)a, (double*)b, (const int8_t*)flags,
                            (const int8_t*)ckn, (const double*)fs_col,
                            (const double*)fs_row, (const double*)mats,
-                           (double*)fld, (double*)scratch, ny, nx, n_steps,
-                           first_mode, (const CombustionConst*)consts,
+                           (double*)fld, (double*)scratch, ny, nx, row0,
+                           ny_glob, n_steps, first_mode, (const CombustionConst*)consts,
                            (cudaStream_t)stream);
 }
 

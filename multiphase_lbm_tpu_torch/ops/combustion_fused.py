@@ -24,6 +24,15 @@ runs every step so, which is the shipped reference binary's behaviour (its
 
 ``LAUNCHES`` counts kernel steps launched by this process (one per step), so
 a run can show that its main path went through the kernel.
+
+:func:`step_fused_halo` is the counterpart of ``pallas_combustion.
+step_fused_halo``, the halo-in entry of the decomposed channel
+(``parallel/sharding.make_fused_combustion_step``): the same kernel in its
+slab mode (a slab of rows of the global lattice, each row's boundary role
+decided by its global row; see the source's header note), ``nsub`` steps on
+a halo-extended slab, then the interior.  Its steps count in
+``HALO_LAUNCHES``, apart from ``LAUNCHES``; :func:`step_halo_plain` is its
+plain version.  :func:`run_fused` is the same slab mode on the whole lattice.
 """
 from __future__ import annotations
 
@@ -32,11 +41,27 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _halo
 from ..models import combustion as cbm
 from ..models.combustion import (M_INV, M_MAT, Q, W, CombustionParams,
                                  CombustionState)
 
 LAUNCHES = 0
+HALO_LAUNCHES = 0
+
+# Rows a step reads away from a row of the slab: the LI2014 conjugate link
+# (1), the one-sided gradients next to a solid (2) and the streaming (1), as
+# JAX's STRIPE_REACH counts them.  The kernel's own chains are no longer: a
+# cell's new populations read the fields at most 3 rows away (pushed from a
+# neighbour whose one-sided gradient reads 2 rows beyond it) and g_coll at
+# most 2 (the conjugate fix of the neighbour's incoming g_T).  The boundary
+# phase adds nothing: its wall-row fixes read the 2 rows inward of rows 1 and
+# ny − 2, and only rows on that inward side, within 3 rows of the wall row,
+# read the fixed values back (beyond the wall row lie the wall rows 0 and
+# ny − 1, which take nothing from it but g_T at the wall, and give nothing).
+# After nsub steps only the outer REACH · nsub rows of a slab can differ
+# from the whole-lattice run.
+REACH = 4
 
 TOPOLOGIES = ("inflow_outflow", "cavity", "couette", "poiseuille")
 
@@ -126,10 +151,12 @@ def kernel_matrices(p: CombustionParams) -> np.ndarray:
     return np.stack(mats)
 
 
-def kernel_tables(p: CombustionParams, device, dtype):
+def kernel_tables(p: CombustionParams, device, dtype, rows=None):
     """The kernel's static inputs for ``p``'s geometry: the flags and ck_n
     (int8), the momentum-exchange populations of column 0 and row ny − 1
-    (``f_solid`` is zero elsewhere in every topology), and the matrices."""
+    (``f_solid`` is zero elsewhere in every topology), and the matrices.
+    ``rows`` (global row indices, default all) selects the rows of the flags,
+    ck_n and column 0 that a slab holds; row ny − 1's stay whole."""
     flags, f_solid = cbm.build_geometry(p)
     tab = cbm.build_static_tables(flags, p)
     fs_col = f_solid[:, :, 0].copy()
@@ -141,6 +168,9 @@ def kernel_tables(p: CombustionParams, device, dtype):
     assert not rest.any(), "f_solid outside column 0 and row ny - 1"
     ck = tab["ck_n"]
     assert np.array_equal(ck, np.rint(ck)) and np.abs(ck).max() <= 2
+    if rows is not None:
+        flags, ck, fs_col = (np.ascontiguousarray(a) for a in (
+            flags[rows], ck[:, rows], fs_col[:, rows]))
     as_t = dict(device=device)
     return dict(
         flags=torch.as_tensor(flags, dtype=torch.int8, **as_t),
@@ -150,24 +180,77 @@ def kernel_tables(p: CombustionParams, device, dtype):
         mats=torch.as_tensor(kernel_matrices(p), dtype=dtype, **as_t))
 
 
-def check_state(state, p: CombustionParams):
-    """Raise unless ``state`` is a :class:`CombustionState` of contiguous
-    tensors of one float dtype and one device with the shapes ``p`` gives."""
-    if not isinstance(state, CombustionState):
-        raise TypeError("state must be a CombustionState")
-    ny, nx = p.ny, p.nx
-    if ny < 5 or nx < 5:
-        raise ValueError(f"the boundary phase needs ny >= 5 and nx >= 5, got "
-                         f"{ny} x {nx}")
+def slab_rows(p: CombustionParams, row0: int, ny_ext: int) -> np.ndarray:
+    """The global rows ``(row0 + y) mod ny`` of a slab's ``ny_ext`` rows;
+    raises when the slab is taller than the lattice (it would hold a global
+    wall row twice)."""
+    if not 1 <= ny_ext <= p.ny:
+        raise ValueError(f"a slab of {ny_ext} rows does not fit a lattice of "
+                         f"{p.ny} rows: it must hold each global row at most "
+                         "once")
+    return (row0 + np.arange(ny_ext)) % p.ny
+
+
+def slab_tables(p: CombustionParams, row0: int, ny_ext: int, device, dtype):
+    """:func:`kernel_tables` of the slab of ``ny_ext`` rows from global row
+    ``row0`` (wrapping), the ``tables_ext`` of :func:`step_fused_halo`; its
+    ``row0`` entry, ``row0 mod ny``, lets the entry refuse another slab's
+    tables."""
+    tb = kernel_tables(p, device, dtype, slab_rows(p, row0, ny_ext))
+    tb["row0"] = row0 % p.ny
+    return tb
+
+
+def step_work(p: CombustionParams, konv: bool = True, rows=None) -> tuple:
+    """(bytes, operations) that one kernel step with all four populations
+    (``konv``) must move and do in float32 over the rows ``rows`` of ``p``'s
+    lattice (global indices, default all), in the timed window (li2014, no
+    first step), counted from the flags: f, g_O2, g_CO2 and g_T read and
+    written (288 B a cell); the three forcing terms written at every cell
+    (108 B) and read at the bulk cells only, where a step reads them (108 B a
+    bulk cell); g_coll written at every cell (36 B) and read across the
+    gas-obstacle interface only, one value per directed interface link
+    ending at a cell of ``rows`` (a link's conjugate fix and its reverse's
+    read the same two values); the flags and ck_n (1 + 9 B a cell); the
+    momentum-exchange populations of column 0 and row ny − 1 (36 B a cell of
+    them).  About 1,500 operations a cell (five 9 × 9 MRT products, four
+    equilibria, the forcing terms, five one-sided gradients, nine interface
+    mass fractions and the Arrhenius rate); the boundary phase touches
+    O(nx + ny) cells in place.  Flow only: f read and written and the flags
+    (73 B a cell), the momentum-exchange populations, and about 250
+    operations a cell (the moments, one equilibrium, one 9 × 9 MRT
+    product)."""
+    flags, _ = cbm.build_geometry(p)
+    gas, obst = flags == cbm.BULK, flags == cbm.OBSTACLE
+    links = np.zeros(flags.shape, dtype=np.int64)
+    for cx, cy in cbm.C[1:]:
+        shift = (int(cy), int(cx))     # the flag of the upstream cell r − c
+        links += ((obst & np.roll(gas, shift, (0, 1)))
+                  | (gas & np.roll(obst, shift, (0, 1))))
+    rows = np.arange(p.ny) if rows is None else np.asarray(rows)
+    cells = len(rows) * p.nx
+    fs = 36 * (p.nx + len(rows))
+    if not konv:
+        return cells * 73 + fs, cells * 250
+    nbytes = (cells * (288 + 108 + 36 + 10) + int(gas[rows].sum()) * 108
+              + int(links[rows].sum()) * 4 + fs)
+    return nbytes, cells * 1500
+
+
+def _check_fields(named, ny: int, nx: int):
+    """Raise unless every ``(name, tensor)`` of ``named`` is a contiguous
+    tensor of the first one's float dtype and device, of shape
+    ``(9, ny, nx)`` (``(ny, nx)`` for q_heat)."""
     if 8 * Q * ny * nx >= 2 ** 31:
         raise ValueError(f"{ny} x {nx} is too large for 32-bit indices")
-    if not isinstance(state.f, torch.Tensor):
-        raise TypeError("f must be a torch tensor")
-    dtype, device = state.f.dtype, state.f.device
+    first = named[0][1]
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"{named[0][0]} must be a torch tensor")
+    dtype, device = first.dtype, first.device
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"f must be float32 or float64, got {dtype}")
-    for name in CombustionState._fields:
-        t = getattr(state, name)
+        raise TypeError(f"{named[0][0]} must be float32 or float64, got "
+                        f"{dtype}")
+    for name, t in named:
         shape = (ny, nx) if name == "q_heat" else (Q, ny, nx)
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch tensor")
@@ -177,9 +260,59 @@ def check_state(state, p: CombustionParams):
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, f on {device}")
+            raise ValueError(f"{name} is on {t.device}, {named[0][0]} on "
+                             f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_state(state, p: CombustionParams):
+    """Raise unless ``state`` is a :class:`CombustionState` of contiguous
+    tensors of one float dtype and one device with the shapes ``p`` gives."""
+    if not isinstance(state, CombustionState):
+        raise TypeError("state must be a CombustionState")
+    if p.ny < 5 or p.nx < 5:
+        raise ValueError(f"the boundary phase needs ny >= 5 and nx >= 5, got "
+                         f"{p.ny} x {p.nx}")
+    _check_fields(list(zip(CombustionState._fields, state)), p.ny, p.nx)
+
+
+def _check_slab(args8, p: CombustionParams):
+    """Raise unless ``args8`` holds the first eight state fields of one slab
+    of ``p``'s lattice: ``(9, ny_ext, nx)`` each, ``ny_ext <= ny``."""
+    if not isinstance(args8, (tuple, list)) or len(args8) != 8:
+        raise TypeError("args8 must hold the 8 state arrays f .. g_coll")
+    if p.ny < 5 or p.nx < 5:
+        raise ValueError(f"the boundary phase needs ny >= 5 and nx >= 5, got "
+                         f"{p.ny} x {p.nx}")
+    if not isinstance(args8[0], torch.Tensor) or args8[0].dim() != 3:
+        raise TypeError("f must be a (9, ny_ext, nx) torch tensor")
+    slab_rows(p, 0, args8[0].shape[1])
+    _check_fields(list(zip(CombustionState._fields[:8], args8)),
+                  args8[0].shape[1], p.nx)
+
+
+def _check_tables(tb, row0: int, p: CombustionParams, ny: int, device,
+                  dtype):
+    """Raise unless ``tb`` holds the kernel's static inputs for the slab of
+    ``ny`` rows from global row ``row0`` of ``p``'s lattice on ``device``
+    (:func:`slab_tables`)."""
+    nx = p.nx
+    want = {"flags": ((ny, nx), torch.int8), "ckn": ((Q, ny, nx), torch.int8),
+            "fs_col": ((Q, ny), dtype), "fs_row": ((Q, nx), dtype),
+            "mats": ((6, Q, Q), dtype)}
+    for name, (shape, dt) in want.items():
+        t = tb.get(name) if isinstance(tb, dict) else None
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape \
+                or t.dtype != dt or t.device != device \
+                or not t.is_contiguous():
+            raise ValueError(f"tables_ext[{name!r}] must be a contiguous "
+                             f"{dt} tensor of shape {shape} on {device} "
+                             "(slab_tables)")
+    if tb.get("row0") != row0 % p.ny:
+        raise ValueError(f"tables_ext were built for global row "
+                         f"{tb.get('row0')}, the slab starts at row "
+                         f"{row0 % p.ny} (slab_tables of the same row0)")
 
 
 def _plain(state, p, n_steps, konv, first_step, all_first_steps):
@@ -210,24 +343,38 @@ def run_fused(state: CombustionState, p: CombustionParams, n_steps: int,
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
 
-    from . import _build
-
-    lib = _build.load()
     dtype = state.f.dtype
-    run = (lib.combustion_run_f32 if dtype == torch.float32
-           else lib.combustion_run_f64)
     key = (p, str(device), dtype)
     if key not in _TABLES:
         _TABLES.clear()
         _TABLES[key] = kernel_tables(p, device, dtype)
-    tb = _TABLES[key]
+    mode = 2 if all_first_steps else (1 if first_step else 0)
+    out = _launch(state[:8], _TABLES[key], p, 0, n_steps, konv, mode)
+    LAUNCHES += n_steps
+    if konv:
+        return CombustionState(*out, state.q_heat)
+    return CombustionState(out[0], *state[1:])
+
+
+def _launch(args8, tb, p: CombustionParams, row0: int, n_steps: int,
+            konv: bool, mode: int) -> tuple:
+    """``n_steps`` kernel steps of the slab ``args8`` (CUDA tensors of
+    ``(9, ny, nx)``; the whole lattice when ``ny == p.ny`` and ``row0`` is
+    0) whose local row 0 is global row ``row0``, with the static inputs
+    ``tb``; returns the 8 arrays after them (the first only is advanced
+    without ``konv``).  ``mode``: the kernel's first_mode."""
+    from . import _build
+
+    lib = _build.load()
+    dtype, device = args8[0].dtype, args8[0].device
+    run = (lib.combustion_run_f32 if dtype == torch.float32
+           else lib.combustion_run_f64)
     consts = kernel_constants(p, konv)
-    ny, nx = p.ny, p.nx
-    a = torch.stack(list(state[:8]))
+    _, ny, nx = args8[0].shape
+    a = torch.stack(list(args8))
     b = torch.empty_like(a)
     fld = torch.empty((5, ny, nx), dtype=dtype, device=device)
     scratch = torch.empty(3 * (nx + ny), dtype=dtype, device=device)
-    mode = 2 if all_first_steps else (1 if first_step else 0)
     # the library's runtime launches into the context current on this
     # thread: make it the tensor's device
     with torch.cuda.device(device):
@@ -235,13 +382,75 @@ def run_fused(state: CombustionState, p: CombustionParams, n_steps: int,
         err = run(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
                   tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
                   tb["fs_row"].data_ptr(), tb["mats"].data_ptr(),
-                  fld.data_ptr(), scratch.data_ptr(), ny, nx, n_steps, mode,
-                  ctypes.addressof(consts), stream)
+                  fld.data_ptr(), scratch.data_ptr(), ny, nx, row0 % p.ny,
+                  p.ny, n_steps, mode, ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("combustion_step launch failed: "
                            + lib.sc_error_string(err).decode())
-    LAUNCHES += n_steps
-    out = (b if n_steps % 2 else a).unbind(0)
-    if konv:
-        return CombustionState(*out, state.q_heat)
-    return CombustionState(out[0], *state[1:])
+    return (b if n_steps % 2 else a).unbind(0)
+
+
+def step_halo_plain(args8, row0: int, p: CombustionParams,
+                    konv: bool = True, nsub: int = 1, halo=None) -> tuple:
+    """The plain version of :func:`step_fused_halo`, on any device: the slab
+    written into a whole-lattice state at its global rows ``(row0 + y) mod
+    ny`` (the other rows from :func:`..models.combustion.initialize`, finite
+    values that reach only the cropped rows), ``nsub`` plain steps of that
+    state, then the slab's interior rows.  The plain step takes the
+    geometry from ``p``, so it needs no tables."""
+    _check_slab(args8, p)
+    ny_ext = args8[0].shape[1]
+    halo = _halo.check(halo, REACH, nsub, ny_ext, "rows")
+    dev, dtype = args8[0].device, args8[0].dtype
+    rows = torch.as_tensor(slab_rows(p, row0, ny_ext), device=dev)
+    whole = cbm.initialize(p, dtype, device=dev)
+    st = CombustionState(*(w.index_copy(1, rows, t)
+                           for w, t in zip(whole[:8], args8)), whole.q_heat)
+    step, _ = cbm.make_step(p, konv=konv)
+    for _ in range(nsub):
+        st = step(st)
+    return tuple(_halo.interior(t.index_select(1, rows), halo, 1)
+                 for t in st[:8])
+
+
+def step_fused_halo(args8, tables_ext, row0: int, p: CombustionParams,
+                    konv: bool = True, nsub: int = 1, halo=None) -> tuple:
+    """``nsub`` kernel steps on a slab whose halo rows are already filled;
+    returns the 8 interior arrays ``(9, ny_ext − 2·halo, nx)``, new tensors.
+
+    Args:
+      args8: f, g_O2, g_CO2, g_T, the three forcing terms and g_coll, each
+        ``(9, ny_ext, nx)`` with ``halo`` rows above and below the shard's
+        own rows (float32 or float64, contiguous, one device); ``ny_ext`` at
+        most ``p.ny``.
+      tables_ext: the slab's static inputs, :func:`slab_tables` of the same
+        ``row0`` and ``ny_ext`` on the same device and dtype; checked on
+        every device, though the plain version on the CPU does not read
+        them.
+      row0: the global row of the slab's row 0 (negative or past the lattice
+        wraps: ``shard_index · ny_loc − halo``).
+      konv: all four populations; else the flow only, and the other seven
+        arrays come back as their interior rows unchanged.
+      halo: rows on each side, at least ``REACH · nsub`` (the default).  The
+        Pallas kernel's 8-row tile, its 128-lane padding and its stripe
+        height are Mosaic rules and do not apply here.
+    Every step is a steady-state step (no first step), as in JAX.  The
+    kernel's row index wraps at the slab's edges; that reaches at most
+    ``REACH · nsub`` rows in, all of them cropped.
+    """
+    global HALO_LAUNCHES
+    check_params(p)
+    _check_slab(args8, p)
+    ny_ext = args8[0].shape[1]
+    halo = _halo.check(halo, REACH, nsub, ny_ext, "rows")
+    device = args8[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    _check_tables(tables_ext, row0, p, ny_ext, device, args8[0].dtype)
+    if device.type == "cpu":
+        return step_halo_plain(args8, row0, p, konv, nsub, halo)
+    out = _launch(args8, tables_ext, p, row0, nsub, konv, 0)
+    HALO_LAUNCHES += nsub
+    if not konv:
+        out = out[:1] + tuple(args8[1:])
+    return tuple(_halo.interior(t, halo, 1) for t in out)

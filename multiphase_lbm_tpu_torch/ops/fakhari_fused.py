@@ -34,6 +34,11 @@ HALO_LAUNCHES = 0
 # stress two rows away, the streaming one more, and the velocity update
 # after it ∇φ of the streamed φ two more (pallas_fakhari.py:63)
 REACH = 5
+# bytes and operations of one float32 step a cell (each input read once,
+# each output written once): h, g (2 × 9) and u (2) read and written, about
+# 750 operations (the fields, the stress and the force formed twice: before
+# the collision and after the streaming)
+WORK_PER_CELL = (160, 750)
 
 
 class _FakhariConst(ctypes.Structure):

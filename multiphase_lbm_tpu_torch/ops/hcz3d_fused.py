@@ -32,6 +32,10 @@ HALO_LAUNCHES = 0
 # z-planes of validity one step consumes: ∇(∇²φ) two and the pull streaming
 # one (pallas_hcz3d.py:27)
 REACH = 3
+# bytes and operations of one float32 step a cell (each input read once,
+# each output written once): f and g read and written (2 × 19 populations),
+# about 1,300 operations
+WORK_PER_CELL = (304, 1300)
 
 
 def run_fused_3d(f, g, p: HCZParams, n_steps: int):

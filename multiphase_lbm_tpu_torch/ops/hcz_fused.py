@@ -31,6 +31,10 @@ HALO_LAUNCHES = 0
 # rows of validity one step consumes: ∇(∇²φ) reads two rows away and the
 # pull streaming one row more (pallas_hcz.py:39)
 REACH = 3
+# bytes and operations of one float32 step a cell (each input read once,
+# each output written once): f and g read and written (2 × 9 populations)
+# and the mask read, about 600 operations
+WORK_PER_CELL = (148, 600)
 
 
 class _HCZConst(ctypes.Structure):

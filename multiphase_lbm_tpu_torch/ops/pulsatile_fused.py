@@ -31,6 +31,13 @@ from ..models import pulsatile as pm
 from ..models.pulsatile import PulsatileParams, PulsatileState
 
 LAUNCHES = 0
+# bytes and operations of one float32 iteration a cell (each input read
+# once, each output written once): g_coll at fluid cells or g_stream at
+# solid ones and the macros read, gout, g2 and the macros written (132 B);
+# about 260 operations in the collision (equilibrium, the 9 × 9 moment
+# product), 55 in the streamed sums and 15 in the geometry (the Bouzidi
+# links and the reseed touch O(nx) cells)
+WORK_PER_CELL = (132, 330)
 
 _DOUBLES = ("rho0", "rho0_3", "rho0_2_9", "rho0_18", "neg_rho0_18", "yc",
             "alpha", "p_tissue", "ytop", "pin", "pout", "p_osc", "omega")

@@ -32,6 +32,10 @@ HALO_LAUNCHES = 0
 # rows of validity one step consumes: the force reads ψ one row away and
 # the pull streaming one row more
 REACH = 2
+# bytes and operations of one float32 step a cell (each input read once,
+# each output written once): 9 populations read and written (no mask when
+# periodic), about 200 operations
+WORK_PER_CELL = (72, 200)
 
 
 class _SCConst(ctypes.Structure):

@@ -35,6 +35,10 @@ HALO_LAUNCHES = 0
 # columns of validity one step consumes: the force reads ψ one column away
 # and the pull streaming one column more
 REACH = 2
+# bytes and operations of one float32 step a cell (each input read once,
+# each output written once): 9 populations read and written (the walls
+# follow from the row index), about 300 operations
+WORK_PER_CELL = (72, 300)
 
 
 class _SCRTConst(ctypes.Structure):

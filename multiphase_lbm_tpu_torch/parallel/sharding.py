@@ -20,10 +20,12 @@ Paths (as in the JAX package):
 * **fused** (``make_fused_*_step``): the same around the halo-in entries of
   the kernel wrappers (``ops/*_fused.step_fused_halo``), which advance
   ``nsub`` steps per exchange.  1D cuts for every family here (y for SC,
-  HCZ and Fakhari, z for HCZ 3D, x for SC-RT) and 2D (y × x) cuts for SC
-  and HCZ.  The exchange width is the physical ``reach · nsub``: the JAX
-  package rounds it up to 8 rows, a Mosaic sublane rule that a CUDA kernel
-  does not have.
+  HCZ, Fakhari and the combustion channel, z for HCZ 3D, x for SC-RT) and
+  2D (y × x) cuts for SC and HCZ.  The exchange width is the physical
+  ``reach · nsub``: the JAX package rounds it up to 8 rows, a Mosaic
+  sublane rule that a CUDA kernel does not have.  The combustion entry also
+  takes its shard's global row (:func:`make_fused_combustion_step`), as the
+  JAX entry reads ``lax.axis_index``.
 
 Global periodicity rides the ring: the first shard's left neighbour is the
 last shard.  Walled axes (SC-RT's y, the walls of a channel mask) are
@@ -31,9 +33,8 @@ walls of the model, not of the decomposition, and need nothing here.
 
 Not here: the JAX package's "auto" path, where GSPMD turns the global
 step's rolls into collectives (PyTorch's nearest counterpart, DTensor,
-needs one process per device); ``make_fused_combustion_step``, which comes
-with the combustion kernel's halo entry; and the pulsatile vessel, which
-the JAX package excludes from decomposition too.
+needs one process per device); and the pulsatile vessel, which the JAX
+package excludes from decomposition too.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..ops import (_halo, fakhari_fused, hcz3d_fused, hcz_fused, sc_fused,
-                   scrt_fused)
+from ..ops import (_halo, combustion_fused, fakhari_fused, hcz3d_fused,
+                   hcz_fused, sc_fused, scrt_fused)
 
 # the mesh axis that cuts each spatial axis, counted from the last
 _SPATIAL_AXES = (("x", 1), ("y", 2), ("z", 3))
@@ -342,7 +343,9 @@ def _fused_step(mesh: Mesh, axes: tuple, specs: Sequence[tuple], H: int,
     first also that of every result.  Each call extends every argument by
     ``H`` cells on each side of every cut axis (x first, then y on the
     x-extended blocks, so corner cells arrive from the diagonal neighbour in
-    two hops), runs ``entry(*extended blocks)`` on each shard and crops the
+    two hops), runs ``entry(mesh position, *extended blocks)`` on each
+    shard (the position is a tuple in mesh order, JAX's ``axis_index``; an
+    entry whose step is the same on every shard ignores it) and crops the
     other cut axes of its results by ``H``.  The entry's kernel wraps its
     index at the extended edges too; that reaches only the cells these
     crops remove."""
@@ -365,15 +368,15 @@ def _fused_step(mesh: Mesh, axes: tuple, specs: Sequence[tuple], H: int,
             ext.append(blocks)
         return tuple(ext)
 
-    def local(*ext):
-        out = entry(*ext)
-        out = out if isinstance(out, tuple) else (out,)
-        for d in crop_dims:
-            out = tuple(_halo.interior(t, H, d) for t in out)
-        return out
-
     def compute(*ext):
-        outs = _unzip(_map(local, *ext), mesh, out_spec)
+        outs = np.empty(ext[0].shape, dtype=object)
+        for idx in np.ndindex(outs.shape):
+            out = entry(idx, *(e[idx] for e in ext))
+            out = out if isinstance(out, tuple) else (out,)
+            for d in crop_dims:
+                out = tuple(_halo.interior(t, H, d) for t in out)
+            outs[idx] = out
+        outs = _unzip(outs, mesh, out_spec)
         return outs[0] if len(outs) == 1 else outs
 
     return HaloStep(exchange, compute)
@@ -390,7 +393,7 @@ def make_fused_sc_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     """
     H = _halo_width(sc_fused.REACH, nsub)
     return _fused_step(mesh, ("y",), [(None, "y", None), ("y", None)], H,
-                       lambda f, m: sc_fused.step_fused_halo(
+                       lambda _, f, m: sc_fused.step_fused_halo(
                            f, m, p, nsub=nsub, halo=H))
 
 
@@ -403,7 +406,7 @@ def make_fused_hcz_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     H = _halo_width(hcz_fused.REACH, nsub)
     f_spec = (None, "y", None)
     return _fused_step(mesh, ("y",), [f_spec, f_spec, ("y", None)], H,
-                       lambda f, g, m: hcz_fused.step_fused_halo(
+                       lambda _, f, g, m: hcz_fused.step_fused_halo(
                            f, g, m, p, nsub=nsub, halo=H))
 
 
@@ -415,7 +418,7 @@ def make_fused_hcz3d_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     H = _halo_width(hcz3d_fused.REACH, nsub)
     spec = (None, "z", None, None)
     return _fused_step(mesh, ("z",), [spec, spec], H,
-                       lambda f, g: hcz3d_fused.step_fused_halo_3d(
+                       lambda _, f, g: hcz3d_fused.step_fused_halo_3d(
                            f, g, p, nsub=nsub, halo=H))
 
 
@@ -426,7 +429,7 @@ def make_fused_fakhari_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     H = _halo_width(fakhari_fused.REACH, nsub)
     spec = (None, "y", None)
     return _fused_step(mesh, ("y",), [spec] * 3, H,
-                       lambda h, g, u: fakhari_fused.step_fused_halo(
+                       lambda _, h, g, u: fakhari_fused.step_fused_halo(
                            h, g, u, p, nsub=nsub, halo=H))
 
 
@@ -444,7 +447,7 @@ def make_fused_sc_step_2d(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     """
     H = _halo_width(sc_fused.REACH, nsub)
     return _fused_step(mesh, ("y", "x"), [(None, "y", "x"), ("y", "x")], H,
-                       lambda f, m: sc_fused.step_fused_halo(
+                       lambda _, f, m: sc_fused.step_fused_halo(
                            f, m, p, nsub=nsub, halo=H))
 
 
@@ -456,7 +459,7 @@ def make_fused_hcz_step_2d(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     H = _halo_width(hcz_fused.REACH, nsub)
     f_spec = (None, "y", "x")
     return _fused_step(mesh, ("y", "x"), [f_spec, f_spec, ("y", "x")], H,
-                       lambda f, g, m: hcz_fused.step_fused_halo(
+                       lambda _, f, g, m: hcz_fused.step_fused_halo(
                            f, g, m, p, nsub=nsub, halo=H))
 
 
@@ -470,5 +473,40 @@ def make_fused_scrt_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     layout, which is Mosaic's; here no transpose and no ``ny_phys``.)"""
     H = _halo_width(scrt_fused.REACH, nsub)
     return _fused_step(mesh, ("x",), [(None, None, "x")], H,
-                       lambda f: scrt_fused.step_fused_halo(
+                       lambda _, f: scrt_fused.step_fused_halo(
                            f, p, nsub=nsub, halo=H))
+
+
+def make_fused_combustion_step(mesh: Mesh, p, konv: bool = True,
+                               nsub: int = 1) -> HaloStep:
+    """Fused reactive combustion step on the y-cut channel (or another
+    topology of ``p``): the state is the first eight fields of a
+    ``CombustionState`` (f, g_O2, g_CO2, g_T, the three forcing terms and
+    g_coll), each ``(9, ny, nx)`` :func:`shard_lattice` over a mesh with the
+    single axis 'y'; each call exchanges ``REACH · nsub = 4 · nsub`` rows
+    of all eight and runs the halo-in kernel entry on each shard, and returns
+    the eight new arrays after ``nsub`` steps (without ``konv`` the flow
+    only, the other seven unchanged).  ``q_heat`` (GUO2015 only, which the
+    kernel refuses) stays outside, as in JAX.
+
+    The channel is walled in y, not periodic: the ring still wraps the two
+    edge shards' halos, and the kernel decides every row's boundary role by
+    its global row modulo ny, so those halo rows evolve as their global rows
+    do in the single-lattice run (which wraps in y too) and the crop
+    argument holds unchanged.  Each shard's entry gets its global row
+    ``row0 = shard_index · ny_loc − H`` of its extended row 0 and the
+    kernel's static inputs of its rows, built once per shard and dtype."""
+    H = _halo_width(combustion_fused.REACH, nsub)
+    tables = {}
+
+    def entry(idx, *ext):
+        ny_ext = ext[0].shape[1]
+        row0 = idx[0] * (ny_ext - 2 * H) - H
+        key = (idx, ext[0].dtype, ext[0].device)
+        if key not in tables:
+            tables[key] = combustion_fused.slab_tables(
+                p, row0, ny_ext, ext[0].device, ext[0].dtype)
+        return combustion_fused.step_fused_halo(ext, tables[key], row0, p,
+                                                konv=konv, nsub=nsub, halo=H)
+
+    return _fused_step(mesh, ("y",), [(None, "y", None)] * 8, H, entry)

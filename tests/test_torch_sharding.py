@@ -347,9 +347,15 @@ def test_halo_bound_cells():
     assert multichip_check.halo_bound_cells(case) == 4 * (20 * 36 + 16 * 32) / 2
 
 
-def test_multichip_check_refuses_combustion():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        multichip_check.main(["combustion", "--device", "cpu"])
+@pytest.mark.parametrize("name", ["sc2d", "hcz3d"])
+def test_halo_bound_work_prices_cells_by_family(name):
+    """Where the work of a cell does not depend on the data, a region costs
+    its cells times the family's WORK_PER_CELL."""
+    case, _ = multichip_check.make_case(name, "cpu")
+    cells = multichip_check.halo_bound_cells(case)
+    per_cell = multichip_check.HALO_ENTRIES[case.family].WORK_PER_CELL
+    assert multichip_check.halo_bound_work(case) == tuple(
+        cells * v for v in per_cell)
 
 
 def test_shard_and_gather_round_trip():
