@@ -88,19 +88,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (b) τ_flow = 0.8, w_e = 1.1, w_eps = 1.2, w_q = 1.3 (full flow MRT);
      (c) (b) with first_step; (d) (b) flow only; (e) scheme none without
      the solid reaction; (f) the cavity with all four populations, Couette
-     and Poiseuille (body force, τ_flow = 0.8) flow only: float32 over 5
+     and Poiseuille (body force, τ_flow = 0.8) flow only; the boundary
+     launch's reordered dependencies: the channel at 8 × 5 (the bottom
+     row's amplitude reads the fixed top row), 12 × 6 and 5 × 5; the
+     collision factors: (b) with τ_O2 ≠ τ_CO2 and τ_T ≠ τ_T_solid, every
+     factor distinct, and the flow's four rates equal at 1.25 (BGK at
+     ω ≠ 1 up to the conserved moments) in the channel and in Poiseuille
+     flow only: float32 over 5
      steps (rtol 2e-5, atol 2e-6, tighter than the Pallas test's 2e-4 and
      5e-6) and float64 over 20 steps (atol 1e-12),
      f, g_O2, g_CO2 over bulk and obstacle cells, g_T and g_coll over every
      cell, the forcing terms over bulk cells; and 420 × 80 and 840 × 160
      float32, 5 steps, from the bench's warm state, and 420 × 80 flow only
-     (its own code path).  The C++ capture
+     (its own code path).  The registers and spills of the three B7
+     kernels (ptxas, phase 2's build).  The C++ capture
      (128 × 48, float64, every step in the binary's first_step mode): every
      field of validation.combustion_reference.FIELDS within its tolerance
      at steps 100-500 through combustion_step; the float32 run printed.
      Main path: bench --model combustion at 420 × 80 and 840 × 160 (all four
      populations) and 420 × 80 flow only, slope 200/600 after a 2N-step
-     warm-up, each beside its plain path (2/6); bulk state finite, inflow
+     warm-up, each beside its plain path (2/6), with each launch's device
+     time from one more profiled call of 20 steps; bulk state finite, inflow
      and outflow mass flux (mass_flux_audit) positive, thermal energy
      finite; coolbm combustion --f32 --steps 1000 --scalar-steps 500 writes
      ini_f.dat, sol_*.vtk with velocity_Z, a velocity_middleline_*.dat,
@@ -163,6 +171,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -212,6 +221,42 @@ def bound(work):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the kernels of csrc/combustion_step.cu (B7)
+CB_KERNELS = ("boundary_kernel", "fields_kernel", "collide_stream_kernel")
+
+
+def ptxas_report(log, source, kernels):
+    """``(kernel<type>, registers, spill store bytes, spill load bytes)`` of
+    each entry function of ``kernels`` of the source ``source`` (the stem of
+    a ``csrc/*.cu`` file, which its mangled names carry) in an ``nvcc
+    -Xptxas -v`` log (empty when this process did not build)."""
+    rows, name, spills = [], None, (None, None)
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(" + "|".join(kernels) + r")I([fd])E", m.group(1))
+            k = k if source in m.group(1) else None
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>"
+                    if k else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows
+
+
+def kernel_name(name):
+    """The short name of a profiler kernel name: ``collide_stream_kernel<float>``
+    or the last scope of a library kernel's name."""
+    m = re.search(r"(\w+_kernel<\w+>)", name)
+    return m.group(1) if m else name.split("<")[0].split("::")[-1]
 
 
 def say(msg):
@@ -688,6 +733,7 @@ def main():
                        tuple(b.values()), tol, cb_failures)
 
     mrt = dict(tau_flow=0.8, w_e=1.1, w_eps=1.2, w_q=1.3)
+    bgk = dict(tau_flow=0.8, w_e=1.25, w_eps=1.25, w_q=1.25)
     live = dict(Y_O2_ini=0.22)
     cb_cases = [
         ("(a) channel 137x45 li2014 default tau",
@@ -709,6 +755,17 @@ def main():
         ("(f) poiseuille 64x32 flow only",
          dict(nx=64, ny=32, topology="poiseuille", dpdx=1e-6, tau_flow=0.8),
          dict(konv=False)),
+        ("(g) channel 8x5", dict(nx=8, ny=5, **live, **mrt), {}),
+        ("(g) channel 12x6", dict(nx=12, ny=6, **live, **mrt), {}),
+        ("(g) channel 5x5", dict(nx=5, ny=5, **live, **mrt), {}),
+        ("(h) every collision factor distinct",
+         dict(nx=137, ny=45, **live, **mrt, tau_O2=0.9, tau_CO2=1.1,
+              tau_T=0.7, tau_T_solid=1.4), {}),
+        ("(h) flow rates equal at 1.25", dict(nx=137, ny=45, **live, **bgk),
+         {}),
+        ("(h) poiseuille 64x32 flow rates equal at 1.25 flow only",
+         dict(nx=64, ny=32, topology="poiseuille", dpdx=1e-6, **bgk),
+         dict(konv=False)),
     ]
     cb_errs = {}
     for name, kw, run_kw in cb_cases:
@@ -724,9 +781,9 @@ def main():
                 f"{name} {str(dtype)[6:]} {steps} steps", out, ref, pc, tol)
     err_cb = 0.0
     # the main path's shapes: 420 × 80 and 840 × 160 with all four
-    # populations, and 420 × 80 flow only (its own code path: no fields
-    # launch, the boundary launch ends after the flow outlet, and the
-    # collision forms ρ and u itself)
+    # populations, and 420 × 80 flow only (its own code path: one launch a
+    # step, whose collision applies the flow outlet and forms ρ and u
+    # itself)
     for size, konvs in ((420, (True, False)), (840, (True,))):
         pc = bench.combustion_params(size)
         st = bench.combustion_state(pc, dev)
@@ -747,6 +804,10 @@ def main():
     if cb_failures:
         raise SystemExit(f"combustion_step disagrees with the plain path: "
                          f"{cb_failures}")
+    for name, regs, stores, loads in ptxas_report(
+            _build.build_log, "combustion_step", CB_KERNELS):
+        say(f"[build] {name}: {regs} registers, spill stores {stores} B, "
+            f"spill loads {loads} B")
     rows = combustion_reference.compare(device=dev)
     for step, row in rows.items():
         say(f"[capture] combustion 128x48 float64 step {step}: " + ", ".join(
@@ -773,9 +834,16 @@ def main():
     combustion_fused.LAUNCHES = 0      # count the combustion path's launches only
     for size, flow_only in cb_cells:
         rec_k, rd, _ = bench.run(model="combustion", size=size, steps=200,
-                                 steps2=600, flow_only=flow_only)
+                                 steps2=600, flow_only=flow_only,
+                                 profile_steps=20)
         what = "flow only" if flow_only else "konv"
         say(f"[bench combustion {size} {what} kernel] {json.dumps(rec_k)}")
+        prof = rec_k["profile"]
+        say(f"[profile] combustion {size} {what}: " + ", ".join(
+            f"{kernel_name(k['name'])} {k['ms_per_step']:.5f} ms "
+            f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
+            + f"; busy {prof['device_busy_ms_per_step']:.5f} ms a step, idle "
+            f"{100 * prof['idle_share']:.1f}%")
         check(rd.valid, rec_k)
         pc = bench.combustion_params(size)
         st = rd.out                    # bench.run checked it finite

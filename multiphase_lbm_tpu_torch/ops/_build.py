@@ -49,10 +49,10 @@ ENTRY_POINTS = {
     # rs_val, ctr, ny, nx, cap, t, par, consts, stream
     "pulsatile_step_f32": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
     "pulsatile_step_f64": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
-    # a, b, flags, ckn, fs_col, fs_row, mats, fld, scratch, ny, nx, row0,
-    # ny_glob, n_steps, first_mode, consts, stream
-    "combustion_run_f32": [_VP] * 9 + [_I32] * 6 + [_VP, _VP],
-    "combustion_run_f64": [_VP] * 9 + [_I32] * 6 + [_VP, _VP],
+    # a, b, flags, ckn, fs_col, fs_row, fld, side, ny, nx, row0, ny_glob,
+    # n_steps, first_mode, consts, stream
+    "combustion_run_f32": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],
+    "combustion_run_f64": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],
 }
 
 # extra nvcc flags of one source: the pulsatile kernel rounds every multiply

@@ -3,8 +3,9 @@
 
 The counterpart of ``multiphase_lbm_tpu/ops/pallas_combustion.py:
 run_fused``.  On a CUDA tensor :func:`run_fused` launches the hand-written
-kernel (three launches a step, the boundary launch only in the
-inflow/outflow channel; see the source's header note) or raises; it never
+kernel (three launches a step with all four populations in the
+inflow/outflow channel, two elsewhere, one for the flow alone; see the
+source's header note) or raises; it never
 substitutes the plain path for a failed build or launch.  On a CPU tensor,
 and only there, it runs the plain PyTorch version (:func:`..models.combustion
 .run`), which is what the CPU tests exercise.  The state keeps its dtype
@@ -43,7 +44,7 @@ import torch
 
 from . import _halo
 from ..models import combustion as cbm
-from ..models.combustion import (M_INV, M_MAT, Q, W, CombustionParams,
+from ..models.combustion import (C, M_MAT, Q, W, CombustionParams,
                                  CombustionState)
 
 LAUNCHES = 0
@@ -71,6 +72,10 @@ _DOUBLES = ("t367", "t76", "wsum_bot", "wsum_top", "conj_neg_a", "conj_a",
             "R_id", "half_stoich", "M_CO2", "DM", "M_O2", "delta_hr",
             "cp_gas")
 _INTS = ("io", "konv", "li2014", "body_force", "solid_reaction")
+# the kernel's collisions, in the order of CombustionConst.lr_a
+COLLISIONS = ("flow", "O2", "CO2", "T", "T_solid", "body_force")
+# |M_j|²: the rows of M_MAT are orthogonal, so M⁻¹ = Mᵀ diag(1 / |M_j|²)
+_M_NORM2 = (M_MAT ** 2).sum(axis=1)
 
 
 class _CombustionConst(ctypes.Structure):
@@ -80,6 +85,8 @@ class _CombustionConst(ctypes.Structure):
                 + [(name, ctypes.c_double) for name in _DOUBLES[:4]]
                 + [("amp_in", ctypes.c_double * 3)]
                 + [(name, ctypes.c_double) for name in _DOUBLES[4:]]
+                + [("lr_a", ctypes.c_double * len(COLLISIONS)),
+                   ("lr_c", ctypes.c_double * (len(COLLISIONS) * Q))]
                 + [(name, ctypes.c_int) for name in _INTS])
 
 
@@ -133,6 +140,9 @@ def kernel_constants(p: CombustionParams, konv: bool) -> _CombustionConst:
     for name, v in values.items():
         setattr(c, name, float(v))
     c.amp_in[:] = [p.Y_O2_inlet, p.Y_CO2_inlet, p.T_inlet]
+    a, coef = low_rank_factors(p)
+    c.lr_a[:] = a.tolist()
+    c.lr_c[:] = coef.ravel().tolist()
     c.io = int(p.topology == "inflow_outflow")
     c.konv = int(konv)
     c.li2014 = int(p.scheme == "li2014")
@@ -141,20 +151,35 @@ def kernel_constants(p: CombustionParams, konv: bool) -> _CombustionConst:
     return c
 
 
-def kernel_matrices(p: CombustionParams) -> np.ndarray:
-    """(6, 9, 9) float64: M⁻¹ diag(S) M of flow, O2, CO2, T and T solid, as
-    the plain path's ``_mrt`` forms them, and M⁻¹ diag(1 − S/2) M of the
-    body force."""
-    S_all = p.S_vectors()
-    mats = [M_INV @ np.diag(S) @ M_MAT for S in S_all]
-    mats.append(M_INV @ np.diag(1.0 - 0.5 * S_all[0]) @ M_MAT)
-    return np.stack(mats)
+def low_rank_factors(p: CombustionParams):
+    """``(a, c)``, shapes ``(6,)`` and ``(6, 9)``: each collision of
+    :data:`COLLISIONS`, M⁻¹ diag(S) M (the body force's with 1 − S/2 of the
+    flow), as ``a I + Σ_j c_j M_jᵀ M_j`` over the rows M_j of ``M_MAT``,
+    with ``a`` the most common rate of S and ``c_j = (S_j − a) / |M_j|²``.
+    The kernel spends work only on the rates other than ``a``: none for g_T
+    (BGK), two for each species, up to six for the flow (the Pallas
+    kernel's ``_mrt_terms`` takes ``a = 1`` unless S is uniform)."""
+    S_all = list(p.S_vectors())
+    S_all.append(1.0 - 0.5 * S_all[0])
+    a = np.empty(len(COLLISIONS))
+    coef = np.empty((len(COLLISIONS), Q))
+    for q, S in enumerate(S_all):
+        rates, counts = np.unique(S, return_counts=True)
+        a[q] = rates[np.argmax(counts)]
+        coef[q] = (S - a[q]) / _M_NORM2
+    return a, coef
+
+
+def collision_matrix(a: float, coef) -> np.ndarray:
+    """The (9, 9) matrix ``a I + Σ_j c_j M_jᵀ M_j`` of one collision's
+    factors (:func:`low_rank_factors`)."""
+    return a * np.eye(Q) + M_MAT.T @ (np.asarray(coef)[:, None] * M_MAT)
 
 
 def kernel_tables(p: CombustionParams, device, dtype, rows=None):
     """The kernel's static inputs for ``p``'s geometry: the flags and ck_n
-    (int8), the momentum-exchange populations of column 0 and row ny − 1
-    (``f_solid`` is zero elsewhere in every topology), and the matrices.
+    (int8) and the momentum-exchange populations of column 0 and row ny − 1
+    (``f_solid`` is zero elsewhere in every topology).
     ``rows`` (global row indices, default all) selects the rows of the flags,
     ck_n and column 0 that a slab holds; row ny − 1's stay whole."""
     flags, f_solid = cbm.build_geometry(p)
@@ -176,8 +201,7 @@ def kernel_tables(p: CombustionParams, device, dtype, rows=None):
         flags=torch.as_tensor(flags, dtype=torch.int8, **as_t),
         ckn=torch.as_tensor(ck.astype(np.int8), **as_t),
         fs_col=torch.as_tensor(fs_col, dtype=dtype, **as_t),
-        fs_row=torch.as_tensor(fs_row, dtype=dtype, **as_t),
-        mats=torch.as_tensor(kernel_matrices(p), dtype=dtype, **as_t))
+        fs_row=torch.as_tensor(fs_row, dtype=dtype, **as_t))
 
 
 def slab_rows(p: CombustionParams, row0: int, ny_ext: int) -> np.ndarray:
@@ -215,8 +239,9 @@ def step_work(p: CombustionParams, konv: bool = True, rows=None) -> tuple:
     momentum-exchange populations of column 0 and row ny − 1 (36 B a cell of
     them).  About 1,500 operations a cell (five 9 × 9 MRT products, four
     equilibria, the forcing terms, five one-sided gradients, nine interface
-    mass fractions and the Arrhenius rate); the boundary phase touches
-    O(nx + ny) cells in place.  Flow only: f read and written and the flags
+    mass fractions and the Arrhenius rate, as the dense collisions count
+    them: the bound is set by the bytes either way); the boundary phase
+    touches O(nx + ny) cells.  Flow only: f read and written and the flags
     (73 B a cell), the momentum-exchange populations, and about 250
     operations a cell (the moments, one equilibrium, one 9 × 9 MRT
     product)."""
@@ -235,6 +260,175 @@ def step_work(p: CombustionParams, konv: bool = True, rows=None) -> tuple:
     nbytes = (cells * (288 + 108 + 36 + 10) + int(gas[rows].sum()) * 108
               + int(links[rows].sum()) * 4 + fs)
     return nbytes, cells * 1500
+
+
+def _local_row(g: int, row0: int, ny: int, ny_glob: int) -> int:
+    """The local row of a slab of ``ny`` rows from global row ``row0`` that
+    holds global row ``g``, or −1 when the slab has none."""
+    y = (g - row0) % ny_glob
+    return y if y < ny else -1
+
+
+def _flow_outlet_plain(f, row0: int, p: CombustionParams):
+    """Column nx − 1 of the slab ``f`` (9, ny, nx) after the flow outlet
+    (``apply_flow_outlet``) at every row whose global row g is 1 .. ny − 2
+    of ``p``'s lattice (the corner formulas at g = 1 and ny − 2), the other
+    rows as they were: (9, ny)."""
+    _, ny, nx = f.shape
+    cxs, cys = (torch.as_tensor(C[:, d], dtype=f.dtype, device=f.device)
+                for d in (0, 1))
+    macro = [(col.sum(0), (cxs[:, None] * col).sum(0) / col.sum(0),
+              (cys[:, None] * col).sum(0) / col.sum(0))
+             for col in (f[:, :, nx - 2], f[:, :, nx - 3])]
+    rho, ux, uy = ((4.0 * a - b) / 3.0 for a, b in zip(*macro))
+    usqr = ux * ux + uy * uy             # the reference's un-scaled u²
+    cu = [float(C[k, 0]) * ux + float(C[k, 1]) * uy for k in range(Q)]
+    feq = [rho * float(W[k]) * (1.0 + 3.0 * cu[k] + 4.5 * cu[k] * cu[k]
+                                - 1.5 * usqr) for k in range(Q)]
+    col = f[:, :, nx - 1]
+    out = col.clone()
+    g = torch.as_tensor((row0 + np.arange(ny)) % p.ny, device=f.device)
+    inner = (g > 1) & (g < p.ny - 2)
+    e1 = (rho * ux - col[1] - col[5] - col[8] + feq[6] + feq[3] + feq[7]) \
+        / float(W[3] + W[7] + W[6])
+    e2 = (rho * uy - col[2] - col[5] + col[8] + col[4] - feq[6] + feq[7]) \
+        / float(W[7] + W[6])
+    out[3] = torch.where(inner, feq[3] + 2.0 / 3.0 * rho * ux + 2.0 / 3.0 * (
+        feq[3] - col[1] + feq[7] - col[5] + feq[6] - col[8]), out[3])
+    out[6] = torch.where(inner, feq[6] - float(W[6]) * (e1 - e2), out[6])
+    out[7] = torch.where(inner, feq[7] - float(W[7]) * (e1 + e2), out[7])
+    for y in (_local_row(1, row0, ny, p.ny), _local_row(p.ny - 2, row0, ny,
+                                                          p.ny)):
+        if y < 0:
+            continue
+        bottom = int(g[y]) == 1
+        r, vx, vy, cc = rho[y], ux[y], uy[y], col[:, y]
+        f8 = (r + r * vx - (2.0 / 3.0) * r * vy - cc[0]
+              - 2.0 * (cc[1] + cc[4] + cc[8])) / 2.0 if bottom else \
+            (r + r * vx + (2.0 / 3.0) * r * vy - cc[0]
+             - 2.0 * (cc[1] + cc[2] + cc[5])) / 2.0
+        out[8, y] = f8
+        out[6, y] = f8 - r * vx / 6.0 + r * vy / 6.0
+        out[3, y] = cc[1] - 2.0 / 3.0 * r * vx
+        out[7, y] = cc[5] - r * vx / 6.0 + r * vy / 6.0
+        if bottom:
+            out[2, y] = cc[4] + 2.0 / 3.0 * r * vy
+        else:
+            out[4, y] = cc[2] - 2.0 / 3.0 * r * vy
+    return out
+
+
+def _scalar_boundary_plain(g, amp_in: float, species: bool, f_out, yt: int,
+                           yb: int):
+    """The boundary launch for one scalar population ``g`` (9, ny, nx) of a
+    slab, from its entry values only, cell by cell as the kernel's
+    ``ScalarBoundary`` forms them: ``{(y, x): (9,) values}`` of every cell
+    of rows ``yt`` and ``yb`` (−1: absent) and columns 1 and nx − 1.
+    ``f_out``: the outlet-fixed flow column (:func:`_flow_outlet_plain`)."""
+    _, ny, nx = g.shape
+    w2 = [2.0 * float(W[k]) for k in range(Q)]
+    xs = torch.arange(nx, device=g.device)
+
+    def sums(y, x):
+        return g[:, y, x].sum(0)
+
+    def amp_out(y):
+        return (4.0 * sums(y, nx - 2) - sums(y, nx - 3)) / 3.0
+
+    def col_fixed_sum(y, x):
+        e = g[:, y, x]
+        if x == 1:
+            a, pairs = amp_in, ((5, 7), (1, 3), (8, 6))
+        else:
+            a, pairs = amp_out(y), ((6, 8), (3, 1), (7, 5))
+        return e.sum(0) + sum((-e[ko] + w2[ko] * a) - e[ki] for ki, ko in pairs)
+
+    def amp_top():                      # A, at every column
+        m = []
+        for y in ((yt - 1) % ny, (yt - 2) % ny):
+            s = sums(y, xs).clone()
+            s[1] = col_fixed_sum(y, 1)
+            s[nx - 1] = col_fixed_sum(y, nx - 1)
+            m.append(s)
+        return (4.0 * m[0] - m[1]) / 3.0
+
+    def top_fixed():                    # B: row yt, (9, nx)
+        v, a = g[:, yt].clone(), amp_top()
+        v[7], v[4], v[8] = (-v[5] + w2[7] * a, -v[2] + w2[2] * a,
+                            -v[6] + w2[6] * a)
+        return v
+
+    def bottom_fixed():                 # C: row yb, from the sums after B
+        m = [top_fixed().sum(0) if y == yt else sums(y, xs)
+             for y in ((yb + 1) % ny, (yb + 2) % ny)]
+        v, a = g[:, yb].clone(), (4.0 * m[0] - m[1]) / 3.0
+        v[6], v[2], v[5] = (-v[8] + w2[8] * a, -v[4] + w2[4] * a,
+                            -v[7] + w2[7] * a)
+        return v
+
+    rows = {y: fix() for y, fix in ((yt, top_fixed), (yb, bottom_fixed))
+            if y >= 0}
+    cells = {}
+    for y in range(ny):
+        v = rows[y] if y in rows else g[:, y].clone()
+        for x in (range(nx) if y in rows else (1, nx - 1)):
+            cells[(y, x)] = v[:, x].clone()
+    for (y, x), v in cells.items():
+        if x == 1:                      # D
+            v[5], v[1], v[8] = (-v[7] + w2[7] * amp_in,
+                                -v[3] + w2[3] * amp_in,
+                                -v[6] + w2[6] * amp_in)
+        elif x == nx - 1 and not (species and y in rows):   # E
+            a = amp_out(y)
+            v[6], v[3], v[7] = (-v[8] + w2[8] * a, -v[1] + w2[1] * a,
+                                -v[5] + w2[5] * a)
+        elif x == nx - 1:               # F, a species corner
+            bottom = y == yb
+            Ylok = (4.0 * rows[y][:, nx - 2].sum() - rows[y][:, nx - 3].sum()) \
+                / 3.0
+            fc = f_out[:, y]
+            rl = fc.sum()
+            uxl = sum(float(C[k, 0]) * fc[k] for k in range(Q)) / rl
+            uyl = sum(float(C[k, 1]) * fc[k] for k in range(Q)) / rl
+            usqr = 1.5 * (uxl * uxl + uyl * uyl)
+            Yc = v.sum()
+            cu = [float(C[k, 0]) * uxl + float(C[k, 1]) * uyl
+                  for k in range(Q)]
+            geq = [Yc * float(W[k]) * (1.0 + 3.0 * cu[k] + 4.5 * cu[k] * cu[k]
+                                       - usqr) for k in range(Q)]
+            eps_k, geq_k = (((0, 1, 4, 8), (2, 3, 5, 6, 7)) if bottom
+                            else ((0, 1, 2, 5), (3, 4, 6, 7, 8)))
+            GC = (Ylok - (sum(v[k] for k in eps_k)
+                          + sum(geq[k] for k in geq_k))) \
+                / sum(float(W[k]) for k in geq_k)
+            for k in geq_k:
+                v[k] = geq[k] + float(W[k]) * GC
+    return cells
+
+
+def boundary_plain(args8, p: CombustionParams, row0: int = 0) -> tuple:
+    """The plain version of the kernel's boundary phase on a slab of ``p``'s
+    lattice whose local row 0 is global row ``row0`` (the whole lattice at
+    row0 = 0): f, g_O2, g_CO2 and g_T of ``args8`` (the first four, (9, ny,
+    nx)) after the flow outlet and the scalar boundary fixes, each boundary
+    cell's values formed from the entry state alone, as the boundary launch
+    forms them for the fields launch to copy (new tensors).  Rows whose
+    fixes read across the slab's edges wrap inside the slab, as the
+    kernel's do."""
+    f = args8[0]
+    _, ny, nx = f.shape
+    yt, yb = (_local_row(g, row0, ny, p.ny) for g in (p.ny - 2, 1))
+    f_out = _flow_outlet_plain(f, row0, p)
+    out = [f.clone()]
+    out[0][:, :, nx - 1] = f_out
+    for g, amp_in, species in zip(args8[1:4], (p.Y_O2_inlet, p.Y_CO2_inlet,
+                                               p.T_inlet), (True, True, False)):
+        fixed = g.clone()
+        for (y, x), v in _scalar_boundary_plain(g, amp_in, species, f_out, yt,
+                                                yb).items():
+            fixed[:, y, x] = v
+        out.append(fixed)
+    return tuple(out)
 
 
 def _check_fields(named, ny: int, nx: int):
@@ -299,8 +493,7 @@ def _check_tables(tb, row0: int, p: CombustionParams, ny: int, device,
     (:func:`slab_tables`)."""
     nx = p.nx
     want = {"flags": ((ny, nx), torch.int8), "ckn": ((Q, ny, nx), torch.int8),
-            "fs_col": ((Q, ny), dtype), "fs_row": ((Q, nx), dtype),
-            "mats": ((6, Q, Q), dtype)}
+            "fs_col": ((Q, ny), dtype), "fs_row": ((Q, nx), dtype)}
     for name, (shape, dt) in want.items():
         t = tb.get(name) if isinstance(tb, dict) else None
         if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape \
@@ -374,15 +567,15 @@ def _launch(args8, tb, p: CombustionParams, row0: int, n_steps: int,
     a = torch.stack(list(args8))
     b = torch.empty_like(a)
     fld = torch.empty((5, ny, nx), dtype=dtype, device=device)
-    scratch = torch.empty(3 * (nx + ny), dtype=dtype, device=device)
+    side = torch.empty((3, Q, 2 * (nx + ny)), dtype=dtype, device=device)
     # the library's runtime launches into the context current on this
     # thread: make it the tensor's device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = run(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
                   tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
-                  tb["fs_row"].data_ptr(), tb["mats"].data_ptr(),
-                  fld.data_ptr(), scratch.data_ptr(), ny, nx, row0 % p.ny,
+                  tb["fs_row"].data_ptr(), fld.data_ptr(), side.data_ptr(),
+                  ny, nx, row0 % p.ny,
                   p.ny, n_steps, mode, ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("combustion_step launch failed: "

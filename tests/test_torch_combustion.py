@@ -403,10 +403,13 @@ def test_kernel_inputs_follow_the_source():
     rebuilt[:, :, 0] = tb["fs_col"].numpy()
     rebuilt[:, -1, 1:] = tb["fs_row"].numpy()[:, 1:]
     np.testing.assert_array_equal(rebuilt, f_solid)
-    S = p.S_vectors()[0]
-    np.testing.assert_array_equal(tb["mats"][0].numpy(),
-                                  tcb.M_INV @ np.diag(S) @ tcb.M_MAT)
     c = cf.kernel_constants(p, konv=True)
+    a, coef = cf.low_rank_factors(p)
+    assert list(c.lr_a) == a.tolist() and list(c.lr_c) == coef.ravel().tolist()
+    S = p.S_vectors()[0]
+    np.testing.assert_allclose(cf.collision_matrix(c.lr_a[0], c.lr_c[:9]),
+                               tcb.M_INV @ np.diag(S) @ tcb.M_MAT, rtol=0,
+                               atol=1e-15)
     assert (c.io, c.konv, c.li2014, c.body_force) == (0, 1, 1, 0)
     assert c.conj_a == (1 - p.sigma) / (1 + p.sigma) == -c.conj_neg_a
 

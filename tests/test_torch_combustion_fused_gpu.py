@@ -15,7 +15,14 @@ at τ_flow = 0.8, w_e = 1.1, w_eps = 1.2, w_q = 1.3, so the full flow MRT is
 live; (c) (b) with first_step; (d) flow only; (e) scheme none without the
 solid reaction; (f) the cavity with all four populations, Couette and
 Poiseuille (body force, τ_flow = 0.8) flow only; and a 133 × 43 channel,
-whose cell count is no multiple of the block.  Tolerances: float32 over 5
+whose cell count is no multiple of the block.  The boundary launch's
+reordered dependencies: the channel at ny = 5 (8 × 5, where the bottom
+row's amplitude reads the fixed top row), at ny = 6 (12 × 6) and at nx = 5
+(5 × 5); the collision factors: τ_O2 ≠ τ_CO2, τ_T ≠ τ_T_solid and the full
+flow MRT together, so that every factor is distinct ("distinct"), and the
+flow's four rates equal at 1.25 (1/τ_flow = w_e = w_eps = w_q), BGK at
+ω ≠ 1 but for the conserved moments, in the channel and with the body
+force ("bgk", "bgk-poiseuille").  Tolerances: float32 over 5
 steps rtol 2e-5, atol 2e-6, tighter than tests/test_pallas_combustion.py's
 2e-4 / 5e-6 (the largest error chip_smoke.py measured on an H100 was
 5.4e-7); float64 over 20 steps atol 1e-12.  f, g_O2 and g_CO2 are compared
@@ -41,6 +48,8 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-6),
        torch.float64: dict(rtol=0.0, atol=1e-12)}
 MRT = dict(tau_flow=0.8, w_e=1.1, w_eps=1.2, w_q=1.3)
 LIVE = dict(Y_O2_ini=0.22)
+DISTINCT = dict(tau_O2=0.9, tau_CO2=1.1, tau_T=0.7, tau_T_solid=1.4)
+BGK = dict(tau_flow=0.8, w_e=1.25, w_eps=1.25, w_q=1.25)
 CASES = {
     "a": (dict(nx=137, ny=45, **LIVE), {}),
     "b": (dict(nx=137, ny=45, **LIVE, **MRT), {}),
@@ -55,6 +64,13 @@ CASES = {
     "f-poiseuille": (dict(nx=64, ny=32, topology="poiseuille", dpdx=1e-6,
                           tau_flow=0.8), dict(konv=False)),
     "odd": (dict(nx=133, ny=43, **LIVE, **MRT), {}),
+    "ny5": (dict(nx=8, ny=5, **LIVE, **MRT), {}),
+    "ny6": (dict(nx=12, ny=6, **LIVE, **MRT), {}),
+    "nx5": (dict(nx=5, ny=5, **LIVE, **MRT), {}),
+    "distinct": (dict(nx=137, ny=45, **LIVE, **MRT, **DISTINCT), {}),
+    "bgk": (dict(nx=137, ny=45, **LIVE, **BGK), {}),
+    "bgk-poiseuille": (dict(nx=64, ny=32, topology="poiseuille", dpdx=1e-6,
+                            **BGK), dict(konv=False)),
 }
 
 
