@@ -19,8 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        over 20 steps (atol 1e-12); and 2048² periodic MRT float32, 5 steps.
      hcz_step — RTI channel 256×1026 with gravity at ω = 1.25 and at the
        config's ω = 1.96, layered channel 128×128 with Gx_const at
-       ω = 1.25: float32 over 5 steps (rtol 3e-5, atol 3e-6) and float64
-       over 20 steps (atol 1e-12); and RTI-2048 (2048×8194) float32, 5 steps.
+       ω = 1.25, and lattices that are not multiples of the kernel's 32×8
+       tile or are narrower than its 2-cell halo (channels 45×37 and 3×5,
+       periodic 7×2, nx×ny, and 45×37 with an obstacle across the tile
+       edges, at ω = 1.25): float32 over 5 steps (rtol 3e-5, atol 3e-6)
+       and float64 over 20 steps (atol 1e-12); and RTI-2048 (2048×8194)
+       float32, 5 steps.
      hcz3d_step — 64³ droplet at ω = 1.2, float32 over 5 steps (rtol 5e-5,
        atol 5e-6) and float64 over 20 steps (atol 1e-12); and 128³ float32,
        3 steps.
@@ -406,6 +410,18 @@ def main():
         del f, fluid, out, ref
 
     def hcz_case(case, dtype, N=256):
+        small = {"channel 45x37": (45, 37), "channel 3x5": (3, 5),
+                 "periodic 7x2": (7, 2), "obstacle 45x37": (45, 37)}
+        if case in small:
+            nx, ny = small[case]
+            p = hcz.HCZParams(omega=1.25, gravity=-1e-5, kappa=0.01)
+            fluid = hcz.geometry_channel(nx, ny, device=dev)
+            if case == "periodic 7x2":
+                fluid[:] = True
+            if case == "obstacle 45x37":       # across x = 32 and y = 8
+                fluid[5:12, 28:36] = False
+            st = hcz.init_rayleigh_taylor(nx, ny, p, dtype=dtype, device=dev)
+            return p, hcz.apply_geometry(st, fluid), fluid
         if case == "layers":
             p = hcz.HCZParams(omega=1.25, kappa=0.001, Gx_const=1e-8)
             fluid = hcz.geometry_channel(128, 128, device=dev)
@@ -416,13 +432,15 @@ def main():
             p = dataclasses.replace(p, omega=1.25)
         return p, st, fluid
 
-    for case in ("rti omega=1.25", "rti omega=1.96 (config)", "layers"):
+    for case in ("rti omega=1.25", "rti omega=1.96 (config)", "layers",
+                 "channel 45x37", "channel 3x5", "periodic 7x2",
+                 "obstacle 45x37"):
         for dtype, steps, tol in ((torch.float32, 5, HCZ_F32_TOL),
                                   (torch.float64, 20, F64_TOL)):
             p, st, fluid = hcz_case(case, dtype)
             out = hcz_fused.run_fused(*st, fluid.to(torch.float32), p, steps)
             ref = hcz.run(st, fluid, p, steps)
-            shape = "128x128" if case == "layers" else "256x1026"
+            shape = "x".join(map(str, reversed(fluid.shape)))
             compare(f"hcz_step {case} {shape} omega={p.omega:.4g} "
                     f"{str(dtype)[6:]} {steps} steps", out, ref, tol, failures)
     p, st, fluid = rti_regression.rti_state(2048, dev)

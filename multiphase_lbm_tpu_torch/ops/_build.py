@@ -33,9 +33,9 @@ ENTRY_POINTS = {
     # f, out, psi, mask, ny, nx, periodic, consts, stream
     "sc_step_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
     "sc_step_f64": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
-    # f, g, fo, go, phi, lap, mask, ny, nx, consts, stream
-    "hcz_step_f32": [_VP] * 7 + [_I32, _I32, _VP, _VP],
-    "hcz_step_f64": [_VP] * 7 + [_I32, _I32, _VP, _VP],
+    # f, g, fa, ga, fb, gb, mask, ny, nx, n_steps, consts, stream
+    "hcz_step_f32": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
+    "hcz_step_f64": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
     # f, g, fo, go, phi, lap, P, nz, ny, nx, consts, stream
     "hcz3d_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
     "hcz3d_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],

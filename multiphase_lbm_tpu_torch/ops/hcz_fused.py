@@ -3,16 +3,16 @@
 The counterpart of ``multiphase_lbm_tpu/ops/pallas_hcz.py``: :func:`run_fused`
 of its ``run_fused`` and :func:`step_fused_halo` of its ``step_fused_halo``
 (``pallas_hcz.py:318``), the halo-in entry of the lattice decomposition.  On
-a CUDA tensor both launch the hand-written kernel once per step (a φ pass, a
-∇²φ pass and a collide-and-stream pass; see the source's header note) or
-raise; they never substitute the plain path for a failed build or launch.
-On a CPU tensor, and only there, they run the plain PyTorch version
-(:func:`..models.hcz.run`, and :func:`step_halo_plain`), which is what the
-CPU tests exercise.  Any row count works: the kernel needs none of the
-Pallas path's 8-row padding.
+a CUDA tensor both launch the hand-written kernel, one launch a step (a
+shared-memory tile per block; see the source's header note), all steps of
+a call from one C call, or raise; they never substitute the plain path for
+a failed build or launch.  On a CPU tensor, and only there, they run the
+plain PyTorch version (:func:`..models.hcz.run`, and
+:func:`step_halo_plain`), which is what the CPU tests exercise.  Any row
+count works: the kernel needs none of the Pallas path's 8-row padding.
 
 ``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one per step), and ``HALO_LAUNCHES`` those launched by
+process (one launch per step), and ``HALO_LAUNCHES`` those launched by
 :func:`step_fused_halo`, so a run can show that its main path went through
 the kernel.
 """
@@ -35,6 +35,8 @@ REACH = 3
 # each output written once): f and g read and written (2 × 9 populations)
 # and the mask read, about 600 operations
 WORK_PER_CELL = (148, 600)
+# the kernel's block tile (TILE_Y, TILE_X in csrc/hcz_step.cu), rows x columns
+TILE = (8, 32)
 
 
 class _HCZConst(ctypes.Structure):
@@ -109,41 +111,51 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
     return _launch(f, g, fluid_f32, p, n_steps, halo_route=False)
 
 
+def launch_geometry(ny: int, nx: int):
+    """The kernel's grid for an ``ny × nx`` lattice, ``(tiles_y, tiles_x)``
+    tiles of :data:`TILE`; raises ``ValueError`` where the kernel's 32-bit
+    indices or the grid's 65,535 tile rows do not reach."""
+    if ny < 1 or nx < 1:
+        raise ValueError(f"empty lattice {ny} x {nx}")
+    if 9 * ny * nx >= 2 ** 31:
+        raise ValueError(f"lattice {ny} x {nx} has 9·ny·nx = {9 * ny * nx} "
+                         "population slots; the kernel indexes < 2^31")
+    tiles = (-(-ny // TILE[0]), -(-nx // TILE[1]))
+    if tiles[0] > 65535:
+        raise ValueError(f"{ny} rows need {tiles[0]} tile rows (> 65535)")
+    return tiles
+
+
 def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
-    """``n_steps`` kernel steps on the CUDA tensors ``(f, g)``, ping-ponging
-    two new pairs of buffers; counts each in ``HALO_LAUNCHES`` or
-    ``LAUNCHES``."""
+    """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
+    which ping-pongs two new pairs of buffers; counts them in
+    ``HALO_LAUNCHES`` or ``LAUNCHES``."""
     global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
-    lib = _build.load()
-    step = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
-    consts = kernel_constants(p)
     _, ny, nx = f.shape
-    bufs = ((torch.empty_like(f), torch.empty_like(g)),
-            (torch.empty_like(f), torch.empty_like(g)))
-    phi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
-    lap = torch.empty_like(phi)
-    src = (f, g)
+    launch_geometry(ny, nx)
+    lib = _build.load()
+    run = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
+    consts = kernel_constants(p)
+    a = (torch.empty_like(f), torch.empty_like(g))
+    b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
+    b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
     # the library's runtime launches into the context current on this
     # thread: make it the tensor's device
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            err = step(src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
-                       dst[1].data_ptr(), phi.data_ptr(), lap.data_ptr(),
-                       fluid_f32.data_ptr(), ny, nx, ctypes.addressof(consts),
-                       stream)
-            if err != 0:
-                raise RuntimeError("hcz_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            if halo_route:
-                HALO_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
-            src = dst
-    return src
+        err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                  a[1].data_ptr(), *b_ptrs, fluid_f32.data_ptr(), ny, nx,
+                  n_steps, ctypes.addressof(consts), stream)
+    if err != 0:
+        raise RuntimeError("hcz_step launch failed: "
+                           + lib.sc_error_string(err).decode())
+    if halo_route:
+        HALO_LAUNCHES += n_steps
+    else:
+        LAUNCHES += n_steps
+    return a if n_steps % 2 else b
 
 
 def step_halo_plain(f_ext, g_ext, fluid_ext_f32, p: HCZParams, nsub: int = 1,

@@ -11,11 +11,14 @@ tests/test_pallas_hcz.py).  Cases run at ω = 1.25 and at the RTI config's
 vanish, and near ω = 2 the forcing prefactor 1 − ω/2 almost does.
 
 The CUDA kernel itself is held against the plain path on the card by
-tests/test_torch_hcz_fused_gpu.py.
+tests/test_torch_hcz_fused_gpu.py, and its source, compiled with g++ for
+the CPU, by tests/test_torch_hcz_emulated.py.
 """
+import ctypes
 import dataclasses
 import functools
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +35,7 @@ from multiphase_lbm_tpu.validation import rti_regression as jrr
 from multiphase_lbm_tpu_torch.core import lattice as tlat
 from multiphase_lbm_tpu_torch.core import stencil as tst
 from multiphase_lbm_tpu_torch.models import hcz as thcz
-from multiphase_lbm_tpu_torch.ops import hcz_fused
+from multiphase_lbm_tpu_torch.ops import _build, hcz_fused
 from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
                                                     hcz_state_from_numpy)
 from multiphase_lbm_tpu_torch.validation import rti_reference as tref
@@ -253,6 +256,47 @@ def test_run_fused_rejects_mixed_dtypes_and_layouts():
                             f, m, thcz.HCZParams(), 1)
     with pytest.raises(ValueError):
         hcz_fused.run_fused(f, f, m, thcz.HCZParams(), -1)
+
+
+_HCZ_CU = (pathlib.Path(hcz_fused.__file__).parents[1] / "csrc" /
+           "hcz_step.cu").read_text()
+
+
+@pytest.mark.parametrize("ny,nx,tiles", [
+    (1026, 256, (129, 8)),       # 1026 rows: 128 whole tiles and one partial
+    (5, 3, (1, 1)),
+    (8194, 2048, (1025, 64)),    # RTI-2048: 151 M slots, inside 2^31
+    (1, 1, (1, 1)),
+])
+def test_launch_geometry_covers_the_lattice(ny, nx, tiles):
+    assert hcz_fused.launch_geometry(ny, nx) == tiles
+    ty, tx = hcz_fused.TILE
+    assert tiles[0] * ty >= ny > (tiles[0] - 1) * ty
+    assert tiles[1] * tx >= nx > (tiles[1] - 1) * tx
+
+
+@pytest.mark.parametrize("ny,nx", [(16384, 16384), (4096, 58255), (0, 8),
+                                   (8, 0), (524289, 8)])
+def test_launch_geometry_refuses_what_the_kernel_cannot_index(ny, nx):
+    """9·ny·nx >= 2^31 (the kernel's 32-bit indices), an empty lattice, and
+    more than 65,535 tile rows (the grid's y limit) raise."""
+    with pytest.raises(ValueError):
+        hcz_fused.launch_geometry(ny, nx)
+
+
+def test_wrapper_mirrors_the_kernel_source():
+    """``TILE`` is the source's (TILE_Y, TILE_X), and the ctypes argument
+    types of both C entries follow their signatures (pointers as c_void_p,
+    ints, n_steps among them, as c_int)."""
+    m = re.search(r"constexpr int TILE_X = (\d+), TILE_Y = (\d+);", _HCZ_CU)
+    assert (int(m.group(2)), int(m.group(1))) == hcz_fused.TILE
+    for name in ("hcz_step_f32", "hcz_step_f64"):
+        params = re.search(rf"int {name}\(([^)]*)\)", _HCZ_CU).group(1)
+        kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
+                 for a in params.split(",")]
+        assert [a.split()[-1].lstrip("*") for a in params.split(",")][7:10] \
+            == ["ny", "nx", "n_steps"]
+        assert _build.ENTRY_POINTS[name] == kinds
 
 
 # ─── physics on the port's plain path (tests/test_hcz.py:21-50) ────────────

@@ -10,7 +10,10 @@ where only PyTorch is installed:
 The cases are those of ``chip_smoke.py``: the RTI channel 256 × 1026 with
 gravity at ω = 1.25 and at its config's ω = 1.96, the layered channel
 128 × 128 with the Gx_const drive at ω = 1.25, an RTI channel with an
-obstacle (mirrored reads off the walls), and the 64³ droplet at ω = 1.2.
+obstacle (mirrored reads off the walls), lattices that are not multiples
+of the 2D kernel's 32 × 8 tile and reach past its 2-cell halo (channels of
+45 × 37 and 3 × 5, periodic 7 × 2, nx × ny), an obstacle across its tile
+edges, and the 64³ droplet at ω = 1.2.
 Tolerances: float32 over 5 steps rtol 3e-5, atol 3e-6 in 2D and rtol 5e-5,
 atol 5e-6 in 3D (summation order and FMA contraction differ from the plain
 path); float64 over 20 steps atol 1e-12, tight enough to separate an
@@ -41,7 +44,18 @@ def cuda_device():
 
 
 def _state_2d(case, dtype, device):
-    if case == "layers":
+    small = {"channel_45x37": (45, 37), "channel_3x5": (3, 5),
+             "periodic_7x2": (7, 2), "obstacle_tile_edges": (45, 37)}
+    if case in small:
+        nx, ny = small[case]
+        p = hcz.HCZParams(omega=1.25, gravity=-1e-5, kappa=0.01)
+        fluid = hcz.geometry_channel(nx, ny, device=device)
+        if case == "periodic_7x2":
+            fluid[:] = True
+        if case == "obstacle_tile_edges":    # crosses x = 32 and y = 8
+            fluid[5:12, 28:36] = False
+        st = hcz.init_rayleigh_taylor(nx, ny, p, dtype=dtype, device=device)
+    elif case == "layers":
         p = hcz.HCZParams(omega=1.25, kappa=0.001, Gx_const=1e-8)
         fluid = hcz.geometry_channel(128, 128, device=device)
         st = hcz.init_layers(128, 128, p, dtype=dtype, device=device)
@@ -62,7 +76,9 @@ def _assert_close(out, ref, tol):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["rti", "rti_config_omega", "layers",
-                                  "rti_obstacle"])
+                                  "rti_obstacle", "channel_45x37",
+                                  "channel_3x5", "periodic_7x2",
+                                  "obstacle_tile_edges"])
 def test_hcz_kernel_matches_plain(cuda_device, case, dtype):
     p, st, fluid = _state_2d(case, dtype, cuda_device)
     n = STEPS[dtype]
@@ -71,6 +87,24 @@ def test_hcz_kernel_matches_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert hcz_fused.LAUNCHES == before + n
     _assert_close(out, hcz.run(st, fluid, p, n), TOL2[dtype])
+
+
+def test_launches_count_steps(cuda_device):
+    """One launch a step: ``LAUNCHES`` grows by ``n_steps`` (0 for 0 steps),
+    ``HALO_LAUNCHES`` by ``nsub`` for the halo entry, each from one C call."""
+    p, (f, g), fluid = _state_2d("channel_45x37", torch.float32, cuda_device)
+    fl = fluid.to(torch.float32)
+    for n in (0, 1, 2, 7):
+        before, halo_before = hcz_fused.LAUNCHES, hcz_fused.HALO_LAUNCHES
+        hcz_fused.run_fused(f, g, fl, p, n)
+        assert hcz_fused.LAUNCHES == before + n
+        assert hcz_fused.HALO_LAUNCHES == halo_before
+    for nsub in (1, 2):
+        before, halo_before = hcz_fused.LAUNCHES, hcz_fused.HALO_LAUNCHES
+        hcz_fused.step_fused_halo(f, g, fl, p, nsub)
+        assert hcz_fused.HALO_LAUNCHES == halo_before + nsub
+        assert hcz_fused.LAUNCHES == before
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
