@@ -68,8 +68,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      wall compliance scaled to the size, 4N warm-up steps through
      pulsatile_step, slope 100/300; N >= 512 goes non-finite in the opening
      transient) and at the reference's N = 64 (621 × 64, slope 500/1500),
-     each beside its plain path (2/6); state finite, fluid share > 0.5 at
-     N = 384.  After these timed runs, three worker processes run the plain
+     each beside its plain path (2/6), with each launch's device time from
+     one more profiled call of 50 (N = 384) or 200 steps; state finite,
+     fluid share > 0.5 at N = 384, LAUNCHES_PER_STEP (5) pulsatile_step
+     launches a step in each profile; the registers and spills of the B6
+     kernels (ptxas, phase 2's build).  After these timed runs, three worker processes run the plain
      paths behind the gates while this process runs coolbm
      PulsatileBloodFlow2D --f32 --steps 300 (its 101 dumps, sol_0000000.vtk,
      sol_0000150.vtk, sol_0000300.vtk, ..., and its MLUPS line through
@@ -130,7 +133,10 @@ pulsatile_step at N = 64 from a 4-step warm state, one step in float32 (g,
 P, U within 5e-7, yr 5e-5, F 1e-4: the Pallas test's tolerances) and in
 float64 (atol 1e-12, identical fluid maps), 27 float64 steps (steps 2-28,
 which hold no order-dependent reseed step; atol 1e-10, identical fluid
-maps), and one float32 step at N = 384 from the bench's warmed state.
+maps), and one float32 and one float64 step at N = 384 from the bench's
+warmed state (the float64 one at atol 1e-12); and the geometry tail's
+window of fresh rows (fresh_map_kernel) against the plain per-cell test on
+random walls at N = 384, four seeds in each type: identical maps.
 14. decomposition (runs after phase 13, before phase 12's worker window) —
      each halo-in entry (step_fused_halo of sc, hcz, fakhari, scrt and
      combustion, step_fused_halo_3d of hcz3d: the family's kernel launched
@@ -164,7 +170,8 @@ maps), and one float32 step at N = 384 from the bench's warmed state.
 Each kernel's launch count is set to 0 just before its own main path
 (phases 4-5, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
 routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
-the paths, the six halo routes included, and, last,
+the paths, the six halo routes included (pulsatile_step's entry also
+with its launches_per_step from the N = 384 profile), and, last,
 {"ok": true, "device": {...}}.
 """
 import concurrent.futures
@@ -229,6 +236,9 @@ def bound(work):
 
 # the kernels of csrc/combustion_step.cu (B7)
 CB_KERNELS = ("boundary_kernel", "fields_kernel", "collide_stream_kernel")
+# the kernels of csrc/pulsatile_step.cu (B6); the last one serves checks
+PB_KERNELS = ("links_kernel", "tile_kernel", "tail_kernel",
+              "reseed_scatter_kernel", "fresh_map_kernel")
 
 
 def ptxas_report(log, source, kernels):
@@ -547,7 +557,27 @@ def main():
     err_pulsatile = pulsatile_case(
         f"{pbig.nx}x{pbig.ny} float32 1 step from the bench's warm state",
         out, ref, PULSATILE_F32_TOL)
+    st = st._replace(**{k: getattr(st, k).double() for k in (
+        "g_coll", "g_stream", "yr1", "yr2", "P", "Ux", "Uy")})
+    F = pm.fobj_from_walls(st.yr1, st.yr2, pbig)
+    st = st._replace(F=F, fluid=pm.flags_from_fobj(F, pbig))
+    ref = pm.run(st, t_big, pbig, 1)
+    out, _ = pulsatile_fused.run_fused_full(st, t_big, pbig, 1)
+    pulsatile_case(f"{pbig.nx}x{pbig.ny} float64 1 step from the bench's "
+                   "warm state", out, ref, 1e-12)
     del st, ref, out
+    # the geometry tail's window of fresh rows against the per-cell test
+    for dtype in (torch.float32, torch.float64):
+        for seed in range(4):
+            yr, yr_new = pulsatile_fused.random_walls(pbig, dtype, seed)
+            same = torch.equal(
+                pulsatile_fused.fresh_map(yr.to(dev), yr_new.to(dev), pbig)
+                .cpu(), pulsatile_fused.fresh_map_plain(yr, yr_new, pbig))
+            say(f"[kernel vs plain] pulsatile fresh_map_kernel "
+                f"{pbig.nx}x{pbig.ny} {str(dtype)[6:]} random walls seed "
+                f"{seed}: {'identical' if same else 'DIFFER'}")
+            if not same:
+                failures.append(f"pulsatile fresh map {dtype} seed {seed}")
     if failures:
         raise SystemExit(f"kernel disagrees with the plain path: {failures}")
 
@@ -1023,11 +1053,28 @@ def main():
         check(rd.valid, rec_p)
         recs_pl[size] = [rec_p]
         del rd
+    for name, regs, stores, loads in ptxas_report(
+            _build.build_log, "pulsatile_step", PB_KERNELS):
+        say(f"[build] {name}: {regs} registers, spill stores {stores} B, "
+            f"spill loads {loads} B")
     pulsatile_fused.LAUNCHES = 0       # count the pulsatile path's launches only
-    for size, a, b in ((384, 100, 300), (64, 500, 1500)):
+    pb_per_step = {}
+    for size, a, b, prof_steps in ((384, 100, 300, 50), (64, 500, 1500, 200)):
         rec_k, rd, st0 = bench.run(model="pulsatile", size=size, steps=a,
-                                   steps2=b)
+                                   steps2=b, profile_steps=prof_steps)
         say(f"[bench pulsatile {size} kernel] {json.dumps(rec_k)}")
+        prof = rec_k["profile"]
+        say(f"[profile] pulsatile {size}: " + ", ".join(
+            f"{kernel_name(k['name'])} {k['ms_per_step']:.5f} ms "
+            f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
+            + f"; busy {prof['device_busy_ms_per_step']:.5f} ms a step, idle "
+            f"{100 * prof['idle_share']:.1f}%")
+        pb_per_step[size] = sum(
+            k["calls_per_step"] for k in prof["kernels"]
+            if any(f"{n}<" in k["name"] for n in PB_KERNELS))
+        check(pb_per_step[size] == pulsatile_fused.LAUNCHES_PER_STEP,
+              f"pulsatile_step launched {pb_per_step[size]} kernels a step at "
+              f"N={size}, not {pulsatile_fused.LAUNCHES_PER_STEP}")
         check(rd.valid, rec_k)
         check(all(bool(torch.isfinite(t).all()) for t in rd.out
                   if t.is_floating_point()), "non-finite pulsatile state")
@@ -1130,7 +1177,8 @@ def main():
         entry("pulsatile_step", "pulsatile_step.cu",
               "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
               pulsatile_launches, err_pulsatile, *recs_pl[384],
-              per_cell(pulsatile_fused, pbig.nx * pbig.ny)),
+              per_cell(pulsatile_fused, pbig.nx * pbig.ny))
+        | {"launches_per_step": pb_per_step[384]},
         entry("combustion_step", "combustion_step.cu",
               "multiphase_lbm_tpu/ops/pallas_combustion.py:171",
               combustion_launches, err_cb, *recs_cb[(420, False)],

@@ -45,10 +45,13 @@ ENTRY_POINTS = {
     # f, out, psi, ny, nx, consts, stream
     "scrt_step_f32": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
     "scrt_step_f64": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
-    # gc, gs, mac, yr, gc_o, gs_o, mac_o, yr_o, bz_idx, bz_val, rs_idx,
-    # rs_val, ctr, ny, nx, cap, t, par, consts, stream
-    "pulsatile_step_f32": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
-    "pulsatile_step_f64": [_VP] * 13 + [_I32] * 5 + [_VP, _VP],
+    # gc, gs, mac, yr, then gc, gs, mac, yr of buffer sets a and b, bz_idx,
+    # bz_val, rs_idx, rs_val, ctr, ny, nx, cap, n_steps, t0, consts, stream
+    "pulsatile_run_f32": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],
+    "pulsatile_run_f64": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],
+    # yr, yr_new, map, ny, nx, consts, stream
+    "pulsatile_fresh_map_f32": [_VP] * 3 + [_I32] * 2 + [_VP, _VP],
+    "pulsatile_fresh_map_f64": [_VP] * 3 + [_I32] * 2 + [_VP, _VP],
     # a, b, flags, ckn, fs_col, fs_row, fld, side, ny, nx, row0, ny_glob,
     # n_steps, first_mode, consts, stream
     "combustion_run_f32": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],

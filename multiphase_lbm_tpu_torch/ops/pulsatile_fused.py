@@ -5,10 +5,11 @@ The counterpart of ``multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:
 run_fused_full``: one reference iteration per step (collide, the two
 Bouzidi wall passes, pull stream, Zou/He, macros with the k = 0 quirk, wall
 ODE, geometry rebuild, reseed) in the reference parity mode only.  On a CUDA
-tensor :func:`run_fused_full` launches the hand-written kernel (eight
-launches a step; see the source's header note) or raises; it never
-substitutes the plain path for a failed build or launch.  On a CPU tensor,
-and only there, it runs the plain PyTorch version
+tensor :func:`run_fused_full` launches the hand-written kernel (five
+launches a step, :data:`LAUNCHES_PER_STEP`, all of a call's steps from one
+ctypes call; see the source's header note) or raises; it never substitutes
+the plain path for a failed build or launch.  On a CPU tensor, and only
+there, it runs the plain PyTorch version
 (:func:`..models.pulsatile.run_with_diag`), which is what the CPU tests
 exercise.  The state keeps its dtype (the Pallas path is float32 only), and
 the kernel reads the walls (``yr1``, ``yr2``), the populations and the
@@ -25,12 +26,19 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..models import pulsatile as pm
 from ..models.pulsatile import PulsatileParams, PulsatileState
 
 LAUNCHES = 0
+# kernel launches a step: the Bouzidi links of each wall, the collide-and-
+# stream tile, the geometry tail and the reseed scatter
+LAUNCHES_PER_STEP = 5
+# the tile launch's band (TILE_Y, TILE_X in csrc/pulsatile_step.cu), rows x
+# columns
+TILE = (4, 64)
 # bytes and operations of one float32 iteration a cell (each input read
 # once, each output written once): g_coll at fluid cells or g_stream at
 # solid ones and the macros read, gout, g2 and the macros written (132 B);
@@ -100,8 +108,9 @@ def check_state(state, p: PulsatileParams):
     if ny < 4 or nx < 2:
         raise ValueError(f"the vessel needs ny >= 4 and nx >= 2, got "
                          f"{ny} x {nx}")
-    if 9 * ny * nx >= 2 ** 31:
-        raise ValueError(f"{ny} x {nx} is too large for 32-bit indices")
+    if 9 * ny * nx >= 2 ** 31 or -(-ny // TILE[0]) > 65535:
+        raise ValueError(f"{ny} x {nx} is too large for 32-bit indices "
+                         "or the tile grid")
     shapes = {"g_coll": (9, ny, nx), "g_stream": (9, ny, nx), "yr1": (nx,),
               "yr2": (nx,), "P": (ny, nx), "Ux": (ny, nx), "Uy": (ny, nx),
               "F": (ny + 2, nx + 2), "fluid": (ny, nx)}
@@ -150,8 +159,8 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
 
     lib = _build.load()
     dtype = state.g_coll.dtype
-    step = (lib.pulsatile_step_f32 if dtype == torch.float32
-            else lib.pulsatile_step_f64)
+    run = (lib.pulsatile_run_f32 if dtype == torch.float32
+           else lib.pulsatile_run_f64)
     consts = kernel_constants(p)
     ny, nx = p.ny, p.nx
     src = (state.g_coll, state.g_stream,
@@ -160,8 +169,8 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
     bufs = [tuple(torch.empty_like(t) for t in src) for _ in range(2)]
     cap = 4 * nx + 256          # fresh cells a step can hold (≤ 2 per column)
     ints = dict(dtype=torch.int32, device=device)
-    bz_idx = torch.empty(6 * nx, **ints)
-    bz_val = torch.empty(6 * nx, dtype=dtype, device=device)
+    bz_idx = torch.empty(12 * nx, **ints)     # six slots a column and wall
+    bz_val = torch.empty(12 * nx, dtype=dtype, device=device)
     rs_idx = torch.empty(cap, **ints)
     rs_val = torch.empty(9 * cap, dtype=dtype, device=device)
     ctr = torch.zeros(8, **ints)
@@ -169,28 +178,91 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
     # thread: make it the tensor's device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            err = step(*(t.data_ptr() for t in src),
-                       *(t.data_ptr() for t in dst),
-                       bz_idx.data_ptr(), bz_val.data_ptr(),
-                       rs_idx.data_ptr(), rs_val.data_ptr(), ctr.data_ptr(),
-                       ny, nx, cap, int(t0) + i, i % 2,
-                       ctypes.addressof(consts), stream)
-            if err != 0:
-                raise RuntimeError("pulsatile_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            LAUNCHES += 1
-            src = dst
+        err = run(*(t.data_ptr() for t in src),
+                  *(t.data_ptr() for b in bufs for t in b),
+                  bz_idx.data_ptr(), bz_val.data_ptr(), rs_idx.data_ptr(),
+                  rs_val.data_ptr(), ctr.data_ptr(), ny, nx, cap, n_steps,
+                  int(t0), ctypes.addressof(consts), stream)
+    if err != 0:
+        raise RuntimeError("pulsatile_run launch failed: "
+                           + lib.sc_error_string(err).decode())
+    LAUNCHES += n_steps
     counts = ctr[:3].cpu().to(torch.int64)
     if counts[2]:
         raise RuntimeError(f"{int(counts[2])} steps had more than {cap} "
                            "fresh cells, the kernel's list")
-    gc, gs, mac, yr = src
     if n_steps == 0:
-        gc, gs = gc.clone(), gs.clone()
+        gc, gs, mac, yr = src[0].clone(), src[1].clone(), src[2], src[3]
+    else:
+        gc, gs, mac, yr = bufs[(n_steps - 1) % 2]
     F = pm.fobj_from_walls(yr[0], yr[1], p)
     return (PulsatileState(g_coll=gc, g_stream=gs, yr1=yr[0], yr2=yr[1],
                            P=mac[0], Ux=mac[1], Uy=mac[2], F=F,
                            fluid=pm.flags_from_fobj(F, p)),
             counts[:2])
+
+
+def fresh_map_plain(yr, yr_new, p: PulsatileParams):
+    """The cells that walls moving from ``yr`` to ``yr_new`` (each
+    ``(2, nx)``: bottom, top) turn from solid to fluid, by the plain path's
+    per-cell test (``models.pulsatile._reseed``): a bool ``(ny, nx)``
+    map."""
+    F_old = pm.fobj_from_walls(yr[0], yr[1], p)[1:-1, 1:-1]
+    F_new = pm.fobj_from_walls(yr_new[0], yr_new[1], p)[1:-1, 1:-1]
+    return (F_old < 1.0) & (F_new >= 1.0)
+
+
+def random_walls(p: PulsatileParams, dtype, seed: int):
+    """``(yr, yr_new)``, each ``(2, nx)`` on the CPU: the inputs on which
+    :func:`fresh_map` is held to :func:`fresh_map_plain` — random walls
+    with small moves and jumps, walls past the channel centre, on integer
+    rows and just off them, far outside the lattice, infinite and NaN."""
+    rng = np.random.default_rng(seed)
+    nx, ny, yc = p.nx, p.ny, p.yc
+    old = np.stack([rng.uniform(-6, yc + 3, nx),
+                    rng.uniform(yc - 3, ny + 6, nx)])
+    new = old + rng.uniform(-0.3, 0.3, old.shape)
+    jump = rng.random(old.shape) < 0.15
+    new[jump] = rng.uniform(-8, ny + 8, int(jump.sum()))
+    rows = rng.integers(-2, ny + 2, old.shape).astype(float)
+    on_row = rng.random(old.shape) < 0.1
+    old[on_row] = rows[on_row]
+    near = rng.random(old.shape) < 0.1
+    new[near] = np.nextafter(rows[near], rng.choice([-np.inf, np.inf],
+                                                    int(near.sum())))
+    for a in (old, new):
+        for v in (np.nan, np.inf, -np.inf, 1e30, -1e30):
+            a[rng.random(a.shape) < 0.02] = v
+    return (torch.from_numpy(old).to(dtype), torch.from_numpy(new).to(dtype))
+
+
+def fresh_map(yr, yr_new, p: PulsatileParams):
+    """:func:`fresh_map_plain` through the kernel's geometry tail on a CUDA
+    tensor: the window of rows around each wall that the tail searches and
+    its per-cell test (``pulsatile_fresh_map_*``); the plain version on a
+    CPU tensor."""
+    if yr.device.type == "cpu":
+        return fresh_map_plain(yr, yr_new, p)
+    if yr.device.type != "cuda":
+        raise ValueError(f"no kernel for device {yr.device}")
+    if (yr.shape != (2, p.nx) or yr_new.shape != yr.shape
+            or yr_new.dtype != yr.dtype or yr_new.device != yr.device
+            or yr.dtype not in (torch.float32, torch.float64)):
+        raise ValueError("yr and yr_new must be (2, nx) tensors of one float "
+                         "dtype and device")
+    from . import _build
+
+    lib = _build.load()
+    fn = (lib.pulsatile_fresh_map_f32 if yr.dtype == torch.float32
+          else lib.pulsatile_fresh_map_f64)
+    yr, yr_new = yr.contiguous(), yr_new.contiguous()
+    out = torch.zeros((p.ny, p.nx), dtype=torch.uint8, device=yr.device)
+    consts = kernel_constants(p)
+    with torch.cuda.device(yr.device):
+        err = fn(yr.data_ptr(), yr_new.data_ptr(), out.data_ptr(), p.ny, p.nx,
+                 ctypes.addressof(consts),
+                 torch.cuda.current_stream(yr.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("pulsatile_fresh_map launch failed: "
+                           + lib.sc_error_string(err).decode())
+    return out.bool()

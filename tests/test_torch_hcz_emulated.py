@@ -7,7 +7,10 @@ emulates what the kernel uses of CUDA: each thread of a block is a
 block, ``__shared__`` makes a variable static (one block-wide buffer, since
 the blocks of a launch run one after another, each ending at the barrier),
 and the harness rewrites every ``kernel<<<grid, block, smem, stream>>>(…)``
-into a call of ``emu_launch``.  The C entry point is then called through
+into a call of ``emu_launch``.  For ``tests/test_torch_pulsatile_emulated.py``
+the stub also gives ``atomicAdd``/``atomicOr`` (GCC atomics) and stream
+capture: launches made while capturing are recorded, and a launched graph
+runs them in order.  The C entry point is then called through
 ctypes on CPU tensors, with its argument types taken from
 ``ops/_build.ENTRY_POINTS``, and its outputs filled with NaN first, so that
 a slot no thread writes shows up.
@@ -49,6 +52,7 @@ STUB = r"""
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
+#include <functional>
 #include <thread>
 #include <vector>
 
@@ -67,8 +71,57 @@ struct dim3 {
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// Stream capture: launches made while capturing are recorded, and a
+// launched graph runs them in order.
+struct EmuGraph {
+  std::vector<std::function<void()>> ops;
+};
+typedef EmuGraph* cudaGraph_t;
+typedef EmuGraph* cudaGraphExec_t;
+enum cudaStreamCaptureMode { cudaStreamCaptureModeThreadLocal = 1 };
+#define cudaStreamNonBlocking 1u
+inline EmuGraph* emu_capture = nullptr;
+inline cudaError_t cudaStreamCreateWithFlags(cudaStream_t* s, unsigned) {
+  *s = nullptr;
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamDestroy(cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaStreamBeginCapture(cudaStream_t,
+                                          cudaStreamCaptureMode) {
+  emu_capture = new EmuGraph;
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamEndCapture(cudaStream_t, cudaGraph_t* g) {
+  *g = emu_capture;
+  emu_capture = nullptr;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphInstantiate(cudaGraphExec_t* e, cudaGraph_t g,
+                                        unsigned long long = 0) {
+  *e = new EmuGraph(*g);
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphLaunch(cudaGraphExec_t e, cudaStream_t) {
+  for (auto& op : e->ops) op();
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphExecDestroy(cudaGraphExec_t e) {
+  delete e;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphDestroy(cudaGraph_t g) {
+  delete g;
+  return cudaSuccess;
+}
 template <typename T>
 T __ldcg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicOr(int* p, int v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -81,8 +134,7 @@ inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 // kernel before a __syncthreads the others reach would hang the block:
 // abort instead.
 template <typename K, typename... A>
-void emu_launch(dim3 grid, dim3 block, size_t, cudaStream_t, K kernel,
-                A... args) {
+void emu_run(dim3 grid, dim3 block, K kernel, A... args) {
   blockDim = block;
   gridDim = grid;
   const unsigned nt = block.x * block.y * block.z;
@@ -113,6 +165,15 @@ void emu_launch(dim3 grid, dim3 block, size_t, cudaStream_t, K kernel,
     std::this_thread::sleep_for(std::chrono::milliseconds(1));
   }
   for (auto& t : threads) t.join();
+}
+
+template <typename K, typename... A>
+void emu_launch(dim3 grid, dim3 block, size_t, cudaStream_t, K kernel,
+                A... args) {
+  if (emu_capture)
+    emu_capture->ops.push_back([=] { emu_run(grid, block, kernel, args...); });
+  else
+    emu_run(grid, block, kernel, args...);
 }
 """
 

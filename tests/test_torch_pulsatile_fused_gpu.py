@@ -15,14 +15,20 @@ float64 at atol 1e-12 with identical fluid maps; 27 float64 steps at atol
 order-dependent reseed steps (the plain path fills them sequentially, the
 kernel densely, by design), so the 27-step window is steps 2 to 28, which
 have none.  Over 12 float32 steps the trajectories are compared by the
-statistics of the Pallas test (the model is chaotic in float32).
+statistics of the Pallas test (the model is chaotic in float32).  At the
+bench's N = 384 (3,821 × 384, from ``bench.pulsatile_warm_state``) one
+step in float32 and in float64 equals the plain path bit for bit; one
+call of n steps equals n calls of one step; and a call launches
+``LAUNCHES_PER_STEP`` kernels a step (counted by ``torch.profiler``).
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from multiphase_lbm_tpu_torch import bench
 from multiphase_lbm_tpu_torch.models import pulsatile as pm
 from multiphase_lbm_tpu_torch.ops import pulsatile_fused as pf
 
@@ -106,3 +112,54 @@ def test_kernel_refuses_unsupported_modes(cuda_device, change):
     st = pm.initialize(P, torch.float32, device=cuda_device)
     with pytest.raises(NotImplementedError):
         pf.run_fused_full(st, 0, dataclasses.replace(P, **change), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_step_at_the_bench_size_is_bit_identical(cuda_device, dtype):
+    p, st, t = bench.pulsatile_warm_state(384, cuda_device)
+    if dtype == torch.float64:
+        st = st._replace(**{k: getattr(st, k).double() for k in
+                            ("g_coll", "g_stream", "yr1", "yr2", "P", "Ux",
+                             "Uy")})
+        F = pm.fobj_from_walls(st.yr1, st.yr2, p)
+        st = st._replace(F=F, fluid=pm.flags_from_fobj(F, p))
+    ref, counts = pm.run_with_diag(st, t, p, 1)
+    out, diag = pf.run_fused_full(st, t, p, 1)
+    assert diag.tolist() == list(counts)
+    assert torch.equal(out.fluid, ref.fluid)
+    for name in F32_TOL:
+        assert _max_err(out, ref, name) == 0.0, name
+
+
+@pytest.mark.parametrize("n", [5, 9])
+def test_one_call_of_n_steps_equals_n_calls(cuda_device, n):
+    """9 steps replay the kernel's captured graph of two steps (calls of 8
+    steps or more), 5 do not; from t0 = t_start + 40 the inlet pressure
+    changes every step."""
+    st = _warm(torch.float64, cuda_device, 4)
+    t0 = P.t_start + 40
+    whole, diag = pf.run_fused_full(st, t0, P, n)
+    part, total = st, torch.zeros(2, dtype=torch.int64)
+    for i in range(n):
+        part, d = pf.run_fused_full(part, t0 + i, P, 1)
+        total += d
+    assert diag.tolist() == total.tolist()
+    assert all(torch.equal(a, b) for a, b in zip(whole, part))
+
+
+def test_launches_a_step(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    st = _warm(torch.float32, cuda_device, 4)
+    pf.run_fused_full(st, 4, P, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pf.run_fused_full(st, 4, P, 3)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type != DeviceType.CPU]
+    ours = [n for n in names
+            if re.search(r"(links|tile|tail|reseed_scatter)_kernel", n)]
+    assert len(ours) == 3 * pf.LAUNCHES_PER_STEP == 15, names
