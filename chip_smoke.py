@@ -10,13 +10,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 limit as nvidia-smi reports them.
   2. build    — nvcc builds csrc/*.cu, one process per source, all started
                 together; prints the seconds and the ptxas report (registers
-                and spills of every kernel).
+                and spills of every kernel), and the registers and spills of
+                sc_step_kernel's four instantiations in float32 and float64.
   3. kernel vs plain on the card:
      sc_step — ω = 1.25 (τ = 0.8) so the rank-2 MRT term is live:
        {periodic 256², walled 256×128 with ρ_w = 0.2 and the droplet on the
        wall} × {BGK, MRT}, float32 over 5 steps (rtol 2e-5, atol 2e-6: sum
        order and FMA contraction differ from the plain path) and float64
-       over 20 steps (atol 1e-12); and 2048² periodic MRT float32, 5 steps.
+       over 20 steps (atol 1e-12); the constant-G layered channel 64² with a
+       per-node force (gx_u = 1e-6, gy_u = −3e-7), BGK and MRT, and MRT on
+       lattices that are not multiples of the kernel's 32×8 tile or are
+       narrower than its ring (channels 45×37 and 3×5, periodic 7×2, and
+       45×37 with an obstacle across the tile edges), all at ω = 1.25 at the
+       same tolerances; and 2048² periodic MRT float32, 5 steps.
      hcz_step — RTI channel 256×1026 with gravity at ω = 1.25 and at the
        config's ω = 1.96, layered channel 128×128 with Gx_const at
        ω = 1.25, and lattices that are not multiples of the kernel's 32×8
@@ -29,12 +35,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        atol 5e-6) and float64 over 20 steps (atol 1e-12); and 128³ float32,
        3 steps.
   4. SC main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
-     periodic, through the kernel (slope protocol), beside the plain path
-     at the same size; state finite, mass drift < 1e-4 (summed in float64),
-     droplet ρ ≈ 0.265 inside and ≈ 0.038 far away (±10%).
+     periodic, through the kernel (slope protocol; and bench --profile 20
+     in a process of its own: device ms a step and idle share), beside the
+     plain path at the same size; state finite, mass drift < 1e-4 (summed in
+     float64), droplet ρ ≈ 0.265 inside and ≈ 0.038 far away (±10%).
   5. SC CLI   — coolbm laplace2D_sc --f32 --steps 800 with the repo config
      writes sol_0000000.vtk, sol_0000400.vtk, mass.dat, energy.dat and its
      MLUPS line, through the kernel.
+  5b. SC layered channel — validation.layered_poiseuille through sc_step
+     (64², 40,000 float64 steps, constant-G ψ, per-node force): deviation
+     from the analytic profile < 0.25, its wall time printed; coolbm
+     twoLayeredFlow2D_sc --steps 400 (config N = 100, float64) writes
+     sol_0000000.vtk, energy.dat, mass.dat and its MLUPS line through
+     sc_step; the 64² float64 step timed through the kernel (slope
+     2000/6000) and the plain path (5/15).
   6. RTI main path — bench --model rti: RTI-2048 float32 through hcz_step
      (slope 50/150 steps) beside the plain path (2/6 steps); state finite,
      phase-mass drift Σf < 1e-4 (summed in float64).
@@ -168,9 +182,10 @@ random walls at N = 384, four seeds in each type: identical maps.
      and the halo entries' time (CUDA events, not gated: shards on one card
      run one after another, so this measures overhead, not scaling).
 Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
+(phases 4-5, 5b, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
 routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
-the paths, the six halo routes included (pulsatile_step's entry also
+the paths, the layered channel's sc_step and the six halo routes
+included (pulsatile_step's entry also
 with its launches_per_step from the N = 384 profile), and, last,
 {"ok": true, "device": {...}}.
 """
@@ -208,6 +223,7 @@ COMBUSTION_F32_TOL = dict(rtol=2e-5, atol=2e-6)
 # outside the tensor cores (the kernels use none).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 # The work of one step in float32: the bytes it must move (each input read
 # once, each output written once) and the floating-point operations it must
 # do (each field formed once per cell), counted from the arithmetic of the
@@ -221,19 +237,21 @@ def per_cell(mod, cells):
     return tuple(cells * v for v in mod.WORK_PER_CELL)
 
 
-def bound(work):
+def bound(work, flop_rate=F32_FLOP_PER_S):
     """(bound_ms, bound_by): the least time the card could take for one
     step of ``work`` (bytes, operations), the larger of bytes over the
-    memory rate and operations over the float32 rate.  For a state that
-    fits in the 50 MB L2 (combustion at 420 × 80 and 840 × 160) the bytes
-    stay in L2 from step to step, so this device-memory bound is an upper
-    estimate of the floor."""
+    memory rate and operations over ``flop_rate`` (float32's by default).
+    For a state that fits in the 50 MB L2 (combustion at 420 × 80 and
+    840 × 160) the bytes stay in L2 from step to step, so this device-memory
+    bound is an upper estimate of the floor."""
     nbytes, flops = work
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the kernel of csrc/sc_step.cu (B1)
+SC_KERNELS = ("sc_step_kernel",)
 # the kernels of csrc/combustion_step.cu (B7)
 CB_KERNELS = ("boundary_kernel", "fields_kernel", "collide_stream_kernel")
 # the kernels of csrc/pulsatile_step.cu (B6); the last one serves checks
@@ -242,18 +260,22 @@ PB_KERNELS = ("links_kernel", "tile_kernel", "tail_kernel",
 
 
 def ptxas_report(log, source, kernels):
-    """``(kernel<type>, registers, spill store bytes, spill load bytes)`` of
-    each entry function of ``kernels`` of the source ``source`` (the stem of
-    a ``csrc/*.cu`` file, which its mangled names carry) in an ``nvcc
-    -Xptxas -v`` log (empty when this process did not build)."""
+    """``(kernel<type, flags>, registers, spill store bytes, spill load
+    bytes)`` of each entry function of ``kernels`` of the source ``source``
+    (the stem of a ``csrc/*.cu`` file, which its mangled names carry) in an
+    ``nvcc -Xptxas -v`` log (empty when this process did not build); bool
+    template arguments after the type are named true or false."""
     rows, name, spills = [], None, (None, None)
     for line in (log or "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(" + "|".join(kernels) + r")I([fd])E", m.group(1))
+            k = re.search(r"(" + "|".join(kernels) + r")I([fd])((?:Lb[01]E)*)E",
+                          m.group(1))
             k = k if source in m.group(1) else None
-            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>"
-                    if k else None)
+            args = ["float" if k and k.group(2) == "f" else "double"] + [
+                "true" if b == "1" else "false"
+                for b in re.findall(r"Lb([01])E", k.group(3) if k else "")]
+            name = f"{k.group(1)}<{', '.join(args)}>" if k else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -371,6 +393,8 @@ def main():
     from multiphase_lbm_tpu_torch.validation import multichip_check as mc
     from multiphase_lbm_tpu_torch.validation import scrt_reference
     from multiphase_lbm_tpu_torch.validation import womersley
+    from multiphase_lbm_tpu_torch.validation import layered_poiseuille
+    from multiphase_lbm_tpu_torch.utils.profiling import measure_mlups_slope
 
     # ---- 2. build ----
     _build.build()
@@ -379,6 +403,10 @@ def main():
         f" (0.0 = already current)")
     if _build.build_log:
         say(_build.build_log.strip())
+    for name, regs, stores, loads in ptxas_report(
+            _build.build_log, "sc_step", SC_KERNELS):
+        say(f"[build] {name} (<type, periodic, const_g>): {regs} registers, "
+            f"spill stores {stores} B, spill loads {loads} B")
 
     # ---- 3. kernels against their plain versions ----
     failures = []
@@ -404,6 +432,52 @@ def main():
                 compare(f"sc_step {geometry} {nx}x{ny} {collision} "
                         f"omega=1.25 {str(dtype)[6:]} {steps} steps",
                         out, ref, tol, failures)
+
+    def layered_params(**kw):
+        """The constant-G layered channel's parameters (layered_poiseuille's
+        EOS and densities) with a per-node force, p_shift as the CLI sets it."""
+        p0 = sc.SCParams(TT0=0.95, rhol=0.21, rhog=0.067, rho_w=0.067,
+                         psi_mode="const_g", G=-1.0, **kw)
+        return dataclasses.replace(p0, p_shift=sc.compute_p_shift(p0))
+
+    def sc_case(case, dtype):
+        """(params, f, fluid, periodic) of the layered channel and of the
+        lattices at the kernel tile's edges, at ω = 1.25."""
+        if case.startswith("const_g layers"):
+            p = layered_params(collision=case.split()[-1], omega=1.25,
+                               gx_u=1e-6, gy_u=-3e-7)
+            fluid = sc.geometry_channel_walls(64, 64, device=dev)
+            f = sc.init_layers(64, 64, p, dtype=dtype, device=dev)
+            return p, sc.apply_geometry(f, fluid), fluid, False
+        nx, ny = {"channel 45x37": (45, 37), "channel 3x5": (3, 5),
+                  "periodic 7x2": (7, 2), "obstacle 45x37": (45, 37)}[case]
+        p = sc.SCParams(collision="mrt", omega=1.25, rho_w=0.2,
+                        gravity=1e-5, gx=-2e-5)
+        if case == "periodic 7x2":
+            f = sc.init_droplet(nx, ny, p, radius=2.0, dtype=dtype, device=dev)
+            return p, f, sc.geometry_periodic(nx, ny, device=dev), True
+        f = sc.init_droplet(nx, ny, p, radius=nx / 4, center=(nx / 2, 3.0),
+                            dtype=dtype, device=dev)
+        fluid = sc.geometry_channel_walls(nx, ny, device=dev)
+        if case == "obstacle 45x37":           # across x = 32 and y = 8
+            fluid[5:12, 28:36] = False
+        return p, sc.apply_geometry(f, fluid), fluid, False
+
+    err_layers = 0.0
+    for case in ("const_g layers bgk", "const_g layers mrt", "channel 45x37",
+                 "channel 3x5", "periodic 7x2", "obstacle 45x37"):
+        for dtype, steps, tol in ((torch.float32, 5, F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            p, f, fluid, periodic = sc_case(case, dtype)
+            out = sc_fused.run_fused(f, fluid.to(torch.float32), p, steps,
+                                     periodic=periodic)
+            ref = sc.run(f, fluid, p, steps)
+            shape = "x".join(map(str, reversed(fluid.shape)))
+            err = compare(f"sc_step {case} {shape} omega=1.25 "
+                          f"{str(dtype)[6:]} {steps} steps", out, ref, tol,
+                          failures)
+            if case == "const_g layers mrt" and dtype == torch.float64:
+                err_layers = err
     n = 2048
     err_sc = 0.0
     for omega in (1.0, 1.25):
@@ -590,6 +664,19 @@ def main():
     rec, rd, f0 = bench.run(size=n, steps=200, steps2=600)
     say(f"[bench kernel] {json.dumps(rec)}")
     check(rd.valid, rec)
+    # the profile in a process of its own: phase 12's profiles here count
+    # each kernel's launches a step, and with one more profiler session in
+    # this process one of them counted 98 of its 100 link launches
+    res = subprocess.run([sys.executable, "-m", "multiphase_lbm_tpu_torch.bench",
+                          "--profile", "20"], capture_output=True, text=True,
+                         timeout=600, check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    prof = json.loads(res.stdout.strip().splitlines()[-1])["profile"]
+    say(f"[profile] sc {n}x{n} (bench --profile 20): " + ", ".join(
+        f"{kernel_name(k['name'])} {k['ms_per_step']:.5f} ms "
+        f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
+        + f"; busy {prof['device_busy_ms_per_step']:.5f} ms a step, idle "
+        f"{100 * prof['idle_share']:.1f}% under the profiler, on {card}")
     bench_launches = sc_fused.LAUNCHES
     check(bench_launches > 0, "the headline did not launch the kernel")
     out = rd.out
@@ -614,6 +701,38 @@ def main():
             ("sol_0000000.vtk", "sol_0000400.vtk", "mass.dat", "energy.dat"))
     check(sc_fused.LAUNCHES > bench_launches, "the CLI did not launch the kernel")
     sc_launches = sc_fused.LAUNCHES
+
+    # ---- 5b. SC layered channel: the gate, the CLI, the step's time ----
+    sc_fused.LAUNCHES = 0              # count the layered path's launches only
+    t0 = time.perf_counter()
+    _, _, err_lp = layered_poiseuille.run()        # 64², 40,000 float64 steps
+    secs = time.perf_counter() - t0
+    say(f"[gate] layered_poiseuille 64x64 40000 float64 steps through sc_step:"
+        f" max relative deviation {err_lp:.4f} (< {layered_poiseuille.GATE}),"
+        f" {secs:.2f} s wall, {sc_fused.LAUNCHES} launches")
+    check(sc_fused.LAUNCHES >= 40000, "the layered gate did not launch sc_step")
+    check(err_lp < layered_poiseuille.GATE,
+          f"layered Poiseuille deviation {err_lp}")
+    before = sc_fused.LAUNCHES
+    run_cli(coolbm, ["twoLayeredFlow2D_sc", "--steps", "400"],
+            ("sol_0000000.vtk", "energy.dat", "mass.dat"))
+    check(sc_fused.LAUNCHES > before, "twoLayeredFlow2D_sc did not launch "
+          "the kernel")
+    p_l = layered_params(gx_u=1e-6)
+    fl_l = sc.geometry_channel_walls(64, 64, device=dev)
+    f_l = sc.apply_geometry(sc.init_layers(64, 64, p_l, device=dev), fl_l)
+    m_l = fl_l.to(torch.float32)
+    rd_l = measure_mlups_slope(
+        lambda k: (lambda v: sc_fused.run_fused(v, m_l, p_l, k)), f_l, 2000,
+        6000, 64 * 64)
+    rd_lp = measure_mlups_slope(lambda k: (lambda v: sc.run(v, fl_l, p_l, k)),
+                                f_l, 5, 15, 64 * 64)
+    check(rd_l.valid and rd_lp.valid, "invalid layered slope reading")
+    layered_launches = sc_fused.LAUNCHES
+    say(f"[main path] layered channel 64x64 float64: kernel "
+        f"{rd_l.ms_per_step:.5f} ms per step vs plain {rd_lp.ms_per_step:.3f}"
+        f" ms; {layered_launches} sc_step launches on this path, on {card}")
+    del f_l
 
     # ---- 6. RTI main path: RTI-2048 ----
     rec_rti_plain, rd, _ = bench.run(model="rti", steps=2, steps2=6,
@@ -1148,8 +1267,9 @@ def main():
     check(err_s < womersley.GATE_STEADY and err_o < womersley.GATE_OSC,
           f"the core channel misses its gates: {err_s}, {err_o}")
 
-    def entry(name, source, replaces, launches, err, rec_k, rec_p, work):
-        bound_ms, bound_by = bound(work)
+    def entry(name, source, replaces, launches, err, rec_k, rec_p, work,
+              flop_rate=F32_FLOP_PER_S):
+        bound_ms, bound_by = bound(work, flop_rate)
         return {"name": name, "route": "cuda",
                 "source": f"multiphase_lbm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
@@ -1160,6 +1280,13 @@ def main():
     kernels = [
         entry("sc_step", "sc_step.cu", "multiphase_lbm_tpu/ops/pallas_sc.py:55",
               sc_launches, err_sc, rec, rec_plain, per_cell(sc_fused, n * n)),
+        # float64: 144 B of populations and the 4 B mask a cell
+        entry("sc_step (const_g layered channel)", "sc_step.cu",
+              "multiphase_lbm_tpu/ops/pallas_sc.py:55", layered_launches,
+              err_layers, {"ms_per_step": rd_l.ms_per_step},
+              {"ms_per_step": rd_lp.ms_per_step},
+              (64 * 64 * 148, 64 * 64 * sc_fused.WORK_PER_CELL[1]),
+              F64_FLOP_PER_S),
         entry("hcz_step", "hcz_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz.py:42", hcz_launches, err_hcz,
               rec_rti, rec_rti_plain, per_cell(hcz_fused, 2048 * 8194)),

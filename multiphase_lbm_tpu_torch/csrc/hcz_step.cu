@@ -50,7 +50,7 @@
 // serve as halo of the cells beside them and write nothing.  Each cell's
 // values go through one code path wherever it sits in a tile, so a slab of
 // the decomposition computes bit for bit what the whole lattice does.
-// Indices are 32-bit: the wrapper (ops/hcz_fused.launch_geometry) and
+// Indices are 32-bit: the wrapper (ops/_grid.launch_geometry) and
 // run_steps refuse 9 · ny · nx >= 2^31.  DRAM traffic is close to the
 // 148 B bound: f, g and the mask in, f and g out; the halo's extra f reads
 // are L2 hits.  run_steps launches n_steps times on the caller's stream,

@@ -30,9 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry point -> argument types; every pointer and the stream as c_void_p
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    # f, out, psi, mask, ny, nx, periodic, consts, stream
-    "sc_step_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
-    "sc_step_f64": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP],
+    # f, a, b, mask, ny, nx, periodic, n_steps, consts, stream
+    "sc_step_f32": [_VP] * 4 + [_I32] * 4 + [_VP, _VP],
+    "sc_step_f64": [_VP] * 4 + [_I32] * 4 + [_VP, _VP],
     # f, g, fa, ga, fb, gb, mask, ny, nx, n_steps, consts, stream
     "hcz_step_f32": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
     "hcz_step_f64": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],

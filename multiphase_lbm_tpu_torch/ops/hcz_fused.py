@@ -24,7 +24,7 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
-from . import _halo
+from . import _grid, _halo
 
 LAUNCHES = 0
 HALO_LAUNCHES = 0
@@ -111,21 +111,6 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
     return _launch(f, g, fluid_f32, p, n_steps, halo_route=False)
 
 
-def launch_geometry(ny: int, nx: int):
-    """The kernel's grid for an ``ny × nx`` lattice, ``(tiles_y, tiles_x)``
-    tiles of :data:`TILE`; raises ``ValueError`` where the kernel's 32-bit
-    indices or the grid's 65,535 tile rows do not reach."""
-    if ny < 1 or nx < 1:
-        raise ValueError(f"empty lattice {ny} x {nx}")
-    if 9 * ny * nx >= 2 ** 31:
-        raise ValueError(f"lattice {ny} x {nx} has 9·ny·nx = {9 * ny * nx} "
-                         "population slots; the kernel indexes < 2^31")
-    tiles = (-(-ny // TILE[0]), -(-nx // TILE[1]))
-    if tiles[0] > 65535:
-        raise ValueError(f"{ny} rows need {tiles[0]} tile rows (> 65535)")
-    return tiles
-
-
 def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
     which ping-pongs two new pairs of buffers; counts them in
@@ -134,7 +119,7 @@ def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
     from . import _build
 
     _, ny, nx = f.shape
-    launch_geometry(ny, nx)
+    _grid.launch_geometry(ny, nx, TILE)
     lib = _build.load()
     run = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
     consts = kernel_constants(p)

@@ -3,21 +3,25 @@
 The counterpart of ``multiphase_lbm_tpu/ops/pallas_sc.py``: :func:`run_fused`
 of its ``run_fused`` and :func:`step_fused_halo` of its ``step_fused_halo``
 (``pallas_sc.py:326``), the halo-in entry of the lattice decomposition.  On
-a CUDA tensor both launch the hand-written kernel once per step (a ψ pass
-and a collide-and-stream pass; see the source's header note) or raise; they
-never substitute the plain path for a failed build or launch.  On a CPU
-tensor, and only there, they run the plain PyTorch version
-(:func:`..models.shan_chen.run`, and :func:`step_halo_plain`), which is
-what the CPU tests exercise.
+a CUDA tensor both launch the hand-written kernel, one launch a step (a
+shared-memory tile per block; see the source's header note), all steps of
+a call from one C call, or raise; they never substitute the plain path for
+a failed build or launch.  On a CPU tensor, and only there, they run the
+plain PyTorch version (:func:`..models.shan_chen.run`, and
+:func:`step_halo_plain`), which is what the CPU tests exercise.  The
+kernel takes both ψ forms of the model (``psi_mode`` ``"yuan"`` and
+``"const_g"``) and the per-node body force ``gx_u``/``gy_u``, which the
+Pallas kernel refuses.
 
 ``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one per step, each a ψ launch plus a collide-and-stream launch),
-and ``HALO_LAUNCHES`` those launched by :func:`step_fused_halo`, so a run
-can show that its main path went through the kernel.
+process (one launch per step), and ``HALO_LAUNCHES`` those launched by
+:func:`step_fused_halo`, so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,7 +29,7 @@ from ..core import eos
 from ..core.collision import MRT_M_I, MRT_M_I_INV
 from ..models import shan_chen as sc
 from ..models.shan_chen import SCParams
-from . import _halo
+from . import _grid, _halo
 
 LAUNCHES = 0
 HALO_LAUNCHES = 0
@@ -36,26 +40,35 @@ REACH = 2
 # each output written once): 9 populations read and written (no mask when
 # periodic), about 200 operations
 WORK_PER_CELL = (72, 200)
+# the kernel's block tile (TILE_Y, TILE_X in csrc/sc_step.cu), rows x columns
+TILE = (8, 32)
+PSI_MODES = ("yuan", "const_g")
 
 
 class _SCConst(ctypes.Structure):
     """Mirror of ``struct SCConst`` in ``csrc/sc_step.cu`` (same order)."""
     _fields_ = [(name, ctypes.c_double) for name in (
         "R", "Tt", "RT", "a", "cs2", "p_shift", "wall_c", "psi_w_fixed",
-        "gx", "gravity", "tau", "omega", "one_minus_omega",
-        "omega_minus_one")] + [
+        "G", "absG_cs2", "psi_w_cg", "gx", "gravity", "gx_u", "gy_u", "tau",
+        "omega", "one_minus_omega", "omega_minus_one")] + [
         (name, ctypes.c_double * 9) for name in ("m7", "m8", "mi7", "mi8")] + [
-        ("center_branch", ctypes.c_int), ("mrt", ctypes.c_int)]
+        (name, ctypes.c_int) for name in ("center_branch", "mrt", "psi_mode")]
 
 
 def check_params(p: SCParams):
-    """The kernel implements only the Yuan–CS branch with ρ-scaled body
-    forces; fail loudly on params it would silently mis-simulate."""
-    if p.psi_mode != "yuan" or p.gx_u != 0.0 or p.gy_u != 0.0:
+    """Fail loudly on a ψ form the kernel does not implement (the model's
+    own two: ``"yuan"`` and ``"const_g"``)."""
+    if p.psi_mode not in PSI_MODES:
         raise NotImplementedError(
-            "fused SC kernel supports psi_mode='yuan' with gx_u=gy_u=0 only "
-            f"(got psi_mode={p.psi_mode!r}, gx_u={p.gx_u}, gy_u={p.gy_u}); "
-            "run the layered-flow configuration through models.shan_chen.run")
+            f"fused SC kernel implements psi_mode {PSI_MODES}, "
+            f"got {p.psi_mode!r}")
+
+
+def _psi_cg(rho: float, p: SCParams) -> float:
+    """The constant-G ψ of ``models.shan_chen.sc_force`` at one density,
+    in float64 on the host."""
+    S = eos.CS2 * rho - (eos.yuan_pressure(rho, p.a, p.R, p.T) + p.p_shift)
+    return math.sqrt(max(2.0 * S / (abs(p.G) * eos.CS2), 0.0))
 
 
 def kernel_constants(p: SCParams) -> _SCConst:
@@ -69,11 +82,13 @@ def kernel_constants(p: SCParams) -> _SCConst:
         R=R, Tt=T, RT=R * T, a=a, cs2=eos.CS2, p_shift=p.p_shift,
         wall_c=(6.0 * p.rho_w * (R * T * Zw - a * p.rho_w - eos.CS2)
                 + 6.0 * p.p_shift),
-        psi_w_fixed=psi_w_fixed, gx=p.gx, gravity=p.gravity, tau=1.0 / p.omega,
-        omega=p.omega, one_minus_omega=1.0 - p.omega,
-        omega_minus_one=p.omega - 1.0,
+        psi_w_fixed=psi_w_fixed, G=p.G, absG_cs2=abs(p.G) * eos.CS2,
+        psi_w_cg=_psi_cg(p.rho_w, p), gx=p.gx, gravity=p.gravity, gx_u=p.gx_u,
+        gy_u=p.gy_u, tau=1.0 / p.omega, omega=p.omega,
+        one_minus_omega=1.0 - p.omega, omega_minus_one=p.omega - 1.0,
         center_branch=int(p.wall_psi_center_branch),
-        mrt=int(p.collision == "mrt"))
+        mrt=int(p.collision == "mrt"),
+        psi_mode=PSI_MODES.index(p.psi_mode))
     # S = diag(1,…,1,ω,ω) ⇒ M⁻¹SM = I + (ω−1)·M⁻¹[:,7:9] M[7:9,:]: the
     # dense moment transform reduces to two contractions + two rank-1 updates
     for name, vals in (("m7", MRT_M_I[7]), ("m8", MRT_M_I[8]),
@@ -106,7 +121,7 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
     Args:
       f: populations ``(9, ny, nx)``, float32 or float64, contiguous.
       fluid_f32: fluid mask ``(ny, nx)`` float32 (1.0 fluid / 0.0 solid).
-      p: model params (``psi_mode='yuan'``, ``gx_u = gy_u = 0``).
+      p: model params (``psi_mode`` ``"yuan"`` or ``"const_g"``).
       periodic: fully fluid domain; the kernel then reads no mask.
     The caller's ``f`` is never written.
     """
@@ -127,37 +142,35 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
 
 def _launch(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool,
             halo_route: bool):
-    """``n_steps`` kernel steps on the CUDA tensor ``f``, ping-ponging two
-    new buffers; counts each in ``HALO_LAUNCHES`` or ``LAUNCHES``."""
+    """``n_steps`` kernel steps on the CUDA tensor ``f`` in one C call,
+    which ping-pongs two new buffers; counts them in ``HALO_LAUNCHES`` or
+    ``LAUNCHES``."""
     global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
-    lib = _build.load()
-    step = lib.sc_step_f32 if f.dtype == torch.float32 else lib.sc_step_f64
-    consts = kernel_constants(p)
     _, ny, nx = f.shape
-    bufs = (torch.empty_like(f), torch.empty_like(f))
-    psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
+    _grid.launch_geometry(ny, nx, TILE)
+    lib = _build.load()
+    run = lib.sc_step_f32 if f.dtype == torch.float32 else lib.sc_step_f64
+    consts = kernel_constants(p)
+    a = torch.empty_like(f)
+    b = torch.empty_like(f) if n_steps > 1 else None
     mask_ptr = None if periodic else fluid_f32.data_ptr()
-    src = f
     # the library's runtime launches into the context current on this
     # thread: make it the tensor's device
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            err = step(src.data_ptr(), dst.data_ptr(), psi.data_ptr(),
-                       mask_ptr, ny, nx, int(periodic),
-                       ctypes.addressof(consts), stream)
-            if err != 0:
-                raise RuntimeError("sc_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            if halo_route:
-                HALO_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
-            src = dst
-    return src
+        err = run(f.data_ptr(), a.data_ptr(), b.data_ptr() if b is not None
+                  else None, mask_ptr, ny, nx, int(periodic), n_steps,
+                  ctypes.addressof(consts), stream)
+    if err != 0:
+        raise RuntimeError("sc_step launch failed: "
+                           + lib.sc_error_string(err).decode())
+    if halo_route:
+        HALO_LAUNCHES += n_steps
+    else:
+        LAUNCHES += n_steps
+    return a if n_steps % 2 else b
 
 
 def step_halo_plain(f_ext, fluid_ext_f32, p: SCParams, nsub: int = 1,

@@ -2,7 +2,8 @@
 
 Port of the Shan–Chen, HCZ, Fakhari, SC Rayleigh–Taylor, pulsatile and
 combustion runners of ``multiphase_lbm_tpu/runners/apps.py``
-(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``run_young_laplace2d``,
+(``run_sc_laplace2d``, ``run_sc_contact_angle``, ``run_sc_two_layered``,
+``run_young_laplace2d``,
 ``run_rayleigh_taylor_pf``, ``run_two_layered_pf``, ``run_laplace3d``,
 ``run_rayleigh_taylor_sc``, ``run_pulsatile``, ``run_combustion``).
 Each reads the reference's
@@ -21,6 +22,8 @@ functions.  The runners keep the lattice and the dtype of the JAX XLA path
 element count match the JAX CLI without ``--fused``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -100,6 +103,29 @@ def run_sc_contact_angle(config, outdir, dtype=torch.float64, max_steps=None,
     f = sc.apply_geometry(f, fluid)
     steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
     return _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact=True,
+                   periodic=False)
+
+
+# ─── Shan-Chen layered flow (reference SC twoLayeredFlow2D.h :457-598) ─────
+def run_sc_two_layered(config, outdir, dtype=torch.float64, max_steps=None,
+                       *, device):
+    cfg = load_config(config)
+    N = _int(cfg, "N", 100)
+    omega, dx, dt = _omega(cfg, N)
+    p0 = sc.SCParams(
+        omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
+        R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.95),
+        rhol=_num(cfg, "rhol", 0.21), rhog=_num(cfg, "rhog", 0.067),
+        rho_w=_num(cfg, "rho_w", 0.067), psi_mode="const_g",
+        G=_num(cfg, "G", -1.0), gx_u=_num(cfg, "gx", 1e-8),
+        gy_u=_num(cfg, "gy", 0.0))
+    p = dataclasses.replace(p0, p_shift=sc.compute_p_shift(p0))
+    f = sc.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
+                       w_int=_int(cfg, "w_int", 4), dtype=dtype, device=device)
+    fluid = sc.geometry_channel_walls(N, N, device=device)
+    f = sc.apply_geometry(f, fluid)
+    steps = max_steps or int(_num(cfg, "max_t", 200.0) / dt)
+    return _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact=False,
                    periodic=False)
 
 

@@ -6,14 +6,13 @@
         [--topology inflow_outflow] [--u-lid U] [--dpdx F] [--restart INI_F]
         [--bench] [--scalar-steps 5000] [--nx 420] [--ny 80]
 
-Ported problems: laplace2D_sc, contactAngle2D, RayleighTaylor2D_sc,
-Young_Laplace2D, rayleighTaylor2D, twoLayeredFlow2D, laplace3D,
-PulsatileBloodFlow2D (no config file; ``--N`` and ``--quirk-free`` as in the
-JAX CLI) and combustion (no config file; the combustion flags as in the JAX
-CLI, ``--steps`` bounds the flow stage).  On the card, a combustion
-configuration the kernel does not cover (the guo2015 and huber2015 schemes)
-runs the plain path and says so.  The JAX CLI's other problem is named so
-that asking for it says which ROADMAP.md item brings it.  The device
+Problems, every one of the JAX CLI: laplace2D_sc, contactAngle2D,
+twoLayeredFlow2D_sc, RayleighTaylor2D_sc, Young_Laplace2D, rayleighTaylor2D,
+twoLayeredFlow2D, laplace3D, PulsatileBloodFlow2D (no config file; ``--N``
+and ``--quirk-free`` as in the JAX CLI) and combustion (no config file; the
+combustion flags as in the JAX CLI, ``--steps`` bounds the flow stage).  On
+the card, a combustion configuration the kernel does not cover (the
+guo2015 and huber2015 schemes) runs the plain path and says so.  The device
 defaults to ``cuda``, where the solver runs the fused CUDA kernels (there
 is no ``--fused`` flag: on the card the kernel is the path).  The plain
 PyTorch path runs only when ``--device cpu`` asks for it: without a visible
@@ -33,6 +32,7 @@ from . import apps
 PROBLEMS = {
     "laplace2D_sc": (apps.run_sc_laplace2d, "sc_Laplace2D.txt"),
     "contactAngle2D": (apps.run_sc_contact_angle, "sc_contactAngle2D.txt"),
+    "twoLayeredFlow2D_sc": (apps.run_sc_two_layered, "sc_twoLayeredFlow2D.txt"),
     "RayleighTaylor2D_sc": (apps.run_rayleigh_taylor_sc,
                             "sc_RayleighTaylor2D.txt"),
     "Young_Laplace2D": (apps.run_young_laplace2d, "young_laplace2D.txt"),
@@ -41,19 +41,13 @@ PROBLEMS = {
     "laplace3D": (apps.run_laplace3d, "pf_laplace3D.txt"),
 }
 
-# problem of the JAX CLI -> the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "twoLayeredFlow2D_sc": "Queue A item 11 (I/O and drivers)",
-}
-
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="coolbm")
     ap.add_argument("problem", choices=list(PROBLEMS)
-                    + ["PulsatileBloodFlow2D", "combustion"]
-                    + list(NOT_PORTED))
+                    + ["PulsatileBloodFlow2D", "combustion"])
     ap.add_argument("--config", default=None,
                     help="reference-format config_*.txt (defaults to the "
                          "repo's configs/ file for the problem)")
@@ -99,10 +93,6 @@ def main(argv=None):
                     help="combustion lattice height (reference N_Y = 80)")
     args = ap.parse_args(argv)
 
-    if args.problem in NOT_PORTED:
-        raise NotImplementedError(
-            f"{args.problem} is not yet ported to multiphase_lbm_tpu_torch; "
-            f"see ROADMAP.md {NOT_PORTED[args.problem]}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("coolbm: no CUDA device is visible; pass --device cpu to run "

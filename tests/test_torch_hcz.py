@@ -35,7 +35,7 @@ from multiphase_lbm_tpu.validation import rti_regression as jrr
 from multiphase_lbm_tpu_torch.core import lattice as tlat
 from multiphase_lbm_tpu_torch.core import stencil as tst
 from multiphase_lbm_tpu_torch.models import hcz as thcz
-from multiphase_lbm_tpu_torch.ops import _build, hcz_fused
+from multiphase_lbm_tpu_torch.ops import _build, _grid, hcz_fused
 from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
                                                     hcz_state_from_numpy)
 from multiphase_lbm_tpu_torch.validation import rti_reference as tref
@@ -269,7 +269,7 @@ _HCZ_CU = (pathlib.Path(hcz_fused.__file__).parents[1] / "csrc" /
     (1, 1, (1, 1)),
 ])
 def test_launch_geometry_covers_the_lattice(ny, nx, tiles):
-    assert hcz_fused.launch_geometry(ny, nx) == tiles
+    assert _grid.launch_geometry(ny, nx, hcz_fused.TILE) == tiles
     ty, tx = hcz_fused.TILE
     assert tiles[0] * ty >= ny > (tiles[0] - 1) * ty
     assert tiles[1] * tx >= nx > (tiles[1] - 1) * tx
@@ -281,7 +281,7 @@ def test_launch_geometry_refuses_what_the_kernel_cannot_index(ny, nx):
     """9·ny·nx >= 2^31 (the kernel's 32-bit indices), an empty lattice, and
     more than 65,535 tile rows (the grid's y limit) raise."""
     with pytest.raises(ValueError):
-        hcz_fused.launch_geometry(ny, nx)
+        _grid.launch_geometry(ny, nx, hcz_fused.TILE)
 
 
 def test_wrapper_mirrors_the_kernel_source():

@@ -56,6 +56,11 @@ CLI_CASES = {
                      dict(N=40, out_freq=20, vtk_freq=20), 40),
     "contactAngle2D": ("sc_contactAngle2D.txt",
                        dict(N=20, RR=8, tau=0.8, out_freq=10, vtk_freq=10), 20),
+    # the constant-G layered channel at N = 20 (ω ≈ 1.67) with a drive of
+    # 1e-6 (the config's 1e-8 leaves the dumped velocities at rounding)
+    "twoLayeredFlow2D_sc": ("sc_twoLayeredFlow2D.txt",
+                            dict(N=20, gx=1e-6, gy=-2e-7, out_freq=10,
+                                 vtk_freq=20), 40),
     # the HCZ problems at N = 16 with Re lowered so that ω ≈ 1.5
     "rayleighTaylor2D": ("pf_rayleighTaylor2D.txt",
                          dict(N=16, Re=11.52, out_freq=10, vtk_freq=20), 40),
@@ -121,10 +126,17 @@ def test_pulsatile_cli_matches_jax_cli(mode, tmp_path):
                                        atol=1e-12, err_msg=f"{n}:{key}")
 
 
-def test_cli_names_the_roadmap_item_for_unported_problems():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcoolbm.main(["twoLayeredFlow2D_sc", "--device", "cpu"])
-    assert "combustion" not in tcoolbm.NOT_PORTED
+def test_cli_offers_every_problem_of_the_jax_cli(monkeypatch, capsys):
+    """Every problem of the JAX CLI (its PROBLEMS and the two without a
+    config file) passes the port's argument parser and reaches the device
+    check, which refuses without a card; an unknown name does not parse."""
+    monkeypatch.setattr(tcoolbm.torch.cuda, "is_available", lambda: False)
+    assert set(tcoolbm.PROBLEMS) == set(jcoolbm.PROBLEMS)
+    for problem in [*jcoolbm.PROBLEMS, "PulsatileBloodFlow2D", "combustion"]:
+        assert tcoolbm.main([problem]) == 2
+        assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tcoolbm.main(["noSuchProblem"])
 
 
 def _combustion_argv(topology, extra, outdir):

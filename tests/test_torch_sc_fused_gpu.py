@@ -7,11 +7,15 @@ where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_sc_fused_gpu.py
 
-Cases run at ω = 1.25 (τ = 0.8), where the rank-2 MRT term is live.
+Cases run at ω = 1.25 (τ = 0.8), where the rank-2 MRT term is live: the
+periodic droplet, the droplet on a wall with an obstacle, and the
+constant-G layered channel with a per-node force (gx_u, gy_u ≠ 0).
 Tolerances: float32 rtol 2e-5, atol 2e-6 over 5 steps (summation order and
 FMA contraction differ from the plain path); float64 atol 1e-12 over 20
 steps, tight enough to separate an indexing fault from rounding.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +37,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _layered(p):
+    """``p`` as the layered channel's constant-G parameters, with its
+    per-node force."""
+    p = dataclasses.replace(p, TT0=0.95, rhol=0.21, rhog=0.067, rho_w=0.067,
+                            psi_mode="const_g", G=-1.0, gx_u=1e-6,
+                            gy_u=-3e-7)
+    return dataclasses.replace(p, p_shift=sc.compute_p_shift(p))
+
+
 def _state(geometry, dtype, device, p):
     nx, ny = (256, 256) if geometry == "periodic" else (256, 128)
+    if geometry == "layers":
+        f = sc.init_layers(nx, ny, p, dtype=dtype, device=device)
+        fluid = sc.geometry_channel_walls(nx, ny, device=device)
+        return sc.apply_geometry(f, fluid), fluid
     if geometry == "periodic":
         f = sc.init_droplet(nx, ny, p, radius=32.0, dtype=dtype, device=device)
         fluid = sc.geometry_periodic(nx, ny, device=device)
@@ -50,11 +67,13 @@ def _state(geometry, dtype, device, p):
 @pytest.mark.parametrize("dtype,steps", [(torch.float32, 5), (torch.float64, 20)])
 @pytest.mark.parametrize("center", [True, False])
 @pytest.mark.parametrize("collision", ["bgk", "mrt"])
-@pytest.mark.parametrize("geometry", ["periodic", "walls"])
+@pytest.mark.parametrize("geometry", ["periodic", "walls", "layers"])
 def test_kernel_matches_plain(cuda_device, geometry, collision, center, dtype,
                               steps):
     p = sc.SCParams(collision=collision, omega=1.25, rho_w=0.2,
                     wall_psi_center_branch=center, gravity=1e-5, gx=-2e-5)
+    if geometry == "layers":
+        p = _layered(p)
     f, fluid = _state(geometry, dtype, cuda_device, p)
     before = sc_fused.LAUNCHES
     out = sc_fused.run_fused(f, fluid.to(torch.float32), p, steps,
@@ -77,9 +96,9 @@ def test_kernel_leaves_input_untouched(cuda_device):
 
 
 def test_kernel_rejects_unsupported_params_on_cuda(cuda_device):
-    p = sc.SCParams(psi_mode="const_g")
+    p = sc.SCParams(psi_mode="bogus")
     f, fluid = _state("periodic", torch.float32, cuda_device, sc.SCParams())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="bogus"):
         sc_fused.run_fused(f, fluid.to(torch.float32), p, 1)
     with pytest.raises(ValueError):
         sc_fused.run_fused(f, fluid.to(torch.float32).cpu(), sc.SCParams(), 1)
@@ -92,3 +111,12 @@ def test_cli_runs_through_the_kernel(cuda_device, tmp_path):
     assert sc_fused.LAUNCHES > before
     assert (tmp_path / "sol_0000000.vtk").exists()
     assert (tmp_path / "contact_angle.dat").exists()
+
+
+def test_layered_cli_runs_through_the_kernel(cuda_device, tmp_path):
+    before = sc_fused.LAUNCHES
+    assert coolbm.main(["twoLayeredFlow2D_sc", "--steps", "40",
+                        "--outdir", str(tmp_path), "--device", "cuda"]) == 0
+    assert sc_fused.LAUNCHES > before
+    for name in ("sol_0000000.vtk", "energy.dat", "mass.dat"):
+        assert (tmp_path / name).exists()

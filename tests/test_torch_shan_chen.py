@@ -178,12 +178,29 @@ def test_run_fused_leaves_input_untouched():
     assert torch.equal(f, before)
 
 
-@pytest.mark.parametrize("bad", [dict(psi_mode="const_g"), dict(gx_u=1e-6),
-                                 dict(gy_u=1e-6)])
+@pytest.mark.parametrize("extra", [
+    dict(psi_mode="const_g", G=-1.0, TT0=0.95, rhol=0.21, rhog=0.067,
+         rho_w=0.067, p_shift=0.01, gx_u=1e-6, gy_u=-3e-7),
+    dict(gx_u=1e-6), dict(gy_u=1e-6)])
+def test_run_fused_takes_const_g_and_node_force(extra):
+    """The constant-G ψ and the per-node force, which the Pallas kernel
+    refuses, run through run_fused (the plain path on a CPU tensor) and
+    match JAX's sc.run: walled channel, MRT at ω = 1.25, 3 steps, float64."""
+    jp, tp = _params(collision="mrt", omega=1.25, **extra)
+    geometry = "layers" if extra.get("psi_mode") == "const_g" else "walls"
+    f, fluid, tf, tfluid = _case(geometry, torch.float64, jp)
+    ref = jsc.run(f, fluid, jp, 3)
+    out = sc_fused.run_fused(tf, tfluid.to(torch.float32), tp, 3)
+    _close(out, ref, torch.float64)
+
+
+@pytest.mark.parametrize("bad", [dict(psi_mode="bogus"), dict(psi_mode="Yuan"),
+                                 dict(psi_mode="constG")])
 def test_run_fused_rejects_unsupported_params(bad):
+    """A ψ form the kernel does not implement is refused by name."""
     p = tsc.SCParams(**bad)
     f = tsc.init_droplet(16, 8, p, radius=3.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="psi_mode='yuan'"):
+    with pytest.raises(NotImplementedError, match=bad["psi_mode"]):
         sc_fused.run_fused(f, torch.ones(8, 16), p, 1)
 
 
