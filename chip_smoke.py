@@ -31,9 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        edges, at ω = 1.25): float32 over 5 steps (rtol 3e-5, atol 3e-6)
        and float64 over 20 steps (atol 1e-12); and RTI-2048 (2048×8194)
        float32, 5 steps.
-     hcz3d_step — 64³ droplet at ω = 1.2, float32 over 5 steps (rtol 5e-5,
-       atol 5e-6) and float64 over 20 steps (atol 1e-12); and 128³ float32,
-       3 steps.
+     hcz3d_step — 64³ droplet at ω = 1.2, and droplets in boxes that are
+       not multiples of the kernel's 32×8 tile or 16-plane chunk (37×11×9)
+       or thinner in z than its 7-plane φ window (33×9×3), float32 over 5
+       steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps (atol
+       1e-12); and 128³ float32, 3 steps.
   4. SC main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
      periodic, through the kernel (slope protocol; and bench --profile 20
      in a process of its own: device ms a step and idle share), beside the
@@ -60,7 +62,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      spike_bubble_position.dat, spike_bubble_velocity.dat and its MLUPS
      line, through hcz_step.
   9. 3D main path — bench --model hcz3d: 128³ float32 through hcz3d_step
-     (slope 50/150) beside the plain path (2/6); then coolbm laplace3D
+     (slope 50/150) beside the plain path (2/6), and bench --model hcz3d
+     --profile 20 in a process of its own: LAUNCHES_PER_STEP (2) B5
+     launches a step, and their device time; then coolbm laplace3D
      --f32 --steps 200 (config N = 100) writes its files through
      hcz3d_step.
  10. Fakhari main path — bench --model fakhari: the 2048² bubble float32
@@ -185,8 +189,8 @@ Each kernel's launch count is set to 0 just before its own main path
 (phases 4-5, 5b, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
 routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
 the paths, the layered channel's sc_step and the six halo routes
-included (pulsatile_step's entry also
-with its launches_per_step from the N = 384 profile), and, last,
+included (pulsatile_step's and hcz3d_step's entries also
+with their launches_per_step from the N = 384 and 128³ profiles), and, last,
 {"ok": true, "device": {...}}.
 """
 import concurrent.futures
@@ -254,6 +258,8 @@ def bound(work, flop_rate=F32_FLOP_PER_S):
 SC_KERNELS = ("sc_step_kernel",)
 # the kernels of csrc/combustion_step.cu (B7)
 CB_KERNELS = ("boundary_kernel", "fields_kernel", "collide_stream_kernel")
+# the kernels of csrc/hcz3d_step.cu (B5)
+B5_KERNELS = ("phi_kernel", "tile_kernel")
 # the kernels of csrc/pulsatile_step.cu (B6); the last one serves checks
 PB_KERNELS = ("links_kernel", "tile_kernel", "tail_kernel",
               "reseed_scatter_kernel", "fresh_map_kernel")
@@ -407,6 +413,10 @@ def main():
             _build.build_log, "sc_step", SC_KERNELS):
         say(f"[build] {name} (<type, periodic, const_g>): {regs} registers, "
             f"spill stores {stores} B, spill loads {loads} B")
+    for name, regs, stores, loads in ptxas_report(
+            _build.build_log, "hcz3d_step", B5_KERNELS):
+        say(f"[build] {name} (hcz3d_step): {regs} registers, spill stores "
+            f"{stores} B, spill loads {loads} B")
 
     # ---- 3. kernels against their plain versions ----
     failures = []
@@ -535,14 +545,21 @@ def main():
     del st, fluid, out, ref
 
     p3 = hcz.HCZParams(omega=1.2, kappa=5e-4)
-    for dtype, steps, tol in ((torch.float32, 5, HCZ3D_F32_TOL),
-                              (torch.float64, 20, F64_TOL)):
-        st = hcz.init_droplet_3d(64, 64, 64, p3, dtype=dtype, device=dev)
-        out = hcz3d_fused.run_fused_3d(*st, p3, steps)
-        ref = hcz.run(st, hcz.geometry_periodic_3d(64, 64, 64, device=dev), p3,
-                      steps, lattice=hcz.D3Q19, three_d=True)
-        compare(f"hcz3d_step droplet 64^3 omega=1.2 {str(dtype)[6:]} "
-                f"{steps} steps", out, ref, tol, failures)
+    # the 64³ droplet; a box that is not a multiple of the kernel's 32 × 8
+    # tile or of its 16-plane chunk, and one thinner in z than its 7-plane
+    # φ window (nx × ny × nz)
+    for nx3, ny3, nz3 in ((64, 64, 64), (37, 11, 9), (33, 9, 3)):
+        radius = None if nx3 == 64 else min(nx3, ny3, nz3) / 3.0
+        fluid3 = hcz.geometry_periodic_3d(nx3, ny3, nz3, device=dev)
+        for dtype, steps, tol in ((torch.float32, 5, HCZ3D_F32_TOL),
+                                  (torch.float64, 20, F64_TOL)):
+            st = hcz.init_droplet_3d(nx3, ny3, nz3, p3, radius=radius,
+                                     dtype=dtype, device=dev)
+            out = hcz3d_fused.run_fused_3d(*st, p3, steps)
+            ref = hcz.run(st, fluid3, p3, steps, lattice=hcz.D3Q19,
+                          three_d=True)
+            compare(f"hcz3d_step droplet {nx3}x{ny3}x{nz3} omega=1.2 "
+                    f"{str(dtype)[6:]} {steps} steps", out, ref, tol, failures)
     st = hcz.init_droplet_3d(128, 128, 128, p3, dtype=torch.float32,
                              device=dev)
     out = hcz3d_fused.run_fused_3d(*st, p3, 3)
@@ -794,6 +811,26 @@ def main():
     bench3d_launches = hcz3d_fused.LAUNCHES
     check(bench3d_launches > 0, "the 3D bench did not launch the kernel")
     del rd, st0
+    # B5's launches a step, from a profile in a process of its own (see
+    # phase 4)
+    res = subprocess.run([sys.executable, "-m", "multiphase_lbm_tpu_torch.bench",
+                          "--model", "hcz3d", "--profile", "20"],
+                         capture_output=True, text=True, timeout=600,
+                         check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    rec_3d_prof = json.loads(res.stdout.strip().splitlines()[-1])
+    prof = rec_3d_prof["profile"]
+    say(f"[profile] hcz3d 128^3 (bench --model hcz3d --profile 20, "
+        f"{rec_3d_prof['ms_per_step']:.5f} ms a step by its slope): " + ", ".join(
+        f"{kernel_name(k['name'])} {k['ms_per_step']:.5f} ms "
+        f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
+        + f"; busy {prof['device_busy_ms_per_step']:.5f} ms a step, idle "
+        f"{100 * prof['idle_share']:.1f}% under the profiler, on {card}")
+    hcz3d_per_step = sum(k["calls_per_step"] for k in prof["kernels"]
+                         if any(f"{n}<" in k["name"] for n in B5_KERNELS))
+    check(hcz3d_per_step == hcz3d_fused.LAUNCHES_PER_STEP,
+          f"hcz3d_step launched {hcz3d_per_step} kernels a step, not "
+          f"{hcz3d_fused.LAUNCHES_PER_STEP}")
     run_cli(coolbm, ["laplace3D", "--f32", "--steps", "200"],
             ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"))
     check(hcz3d_fused.LAUNCHES > bench3d_launches,
@@ -1293,7 +1330,8 @@ def main():
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
               hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain,
-              per_cell(hcz3d_fused, 128 ** 3)),
+              per_cell(hcz3d_fused, 128 ** 3))
+        | {"launches_per_step": hcz3d_per_step},
         entry("fakhari_step", "fakhari_step.cu",
               "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,
               err_fakhari, rec_fk, rec_fk_plain, per_cell(fakhari_fused, n * n)),

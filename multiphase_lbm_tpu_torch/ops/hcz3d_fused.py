@@ -5,16 +5,17 @@ The counterpart of ``multiphase_lbm_tpu/ops/pallas_hcz3d.py``:
 :func:`run_fused_3d` of its ``run_fused_3d`` (fully periodic box, no mask)
 and :func:`step_fused_halo_3d` of its ``step_fused_halo_3d``
 (``pallas_hcz3d.py:299``), the halo-in entry of the z-slab decomposition.
-On a CUDA tensor both launch the hand-written kernel once per step (φ,
-∇²φ, u-and-P and collide-and-stream passes; see the source's header note)
-or raise; they never substitute the plain path for a failed build or
-launch.  On a CPU tensor, and only there, they run the plain PyTorch
-version (:func:`..models.hcz.run` with ``three_d=True``, and
+On a CUDA tensor both launch the hand-written kernel, two launches a step
+(a φ pass, then a shared-memory tile that marches up chunks of z-planes;
+see the source's header note), all steps of a call from one C call, or
+raise; they never substitute the plain path for a failed build or launch.
+On a CPU tensor, and only there, they run the plain PyTorch version
+(:func:`..models.hcz.run` with ``three_d=True``, and
 :func:`step_halo_plain_3d`).
 
 ``LAUNCHES`` counts kernel steps launched by :func:`run_fused_3d` in this
-process (one per step), and ``HALO_LAUNCHES`` those launched by
-:func:`step_fused_halo_3d`.
+process (one per step, of ``LAUNCHES_PER_STEP`` launches), and
+``HALO_LAUNCHES`` those launched by :func:`step_fused_halo_3d`.
 """
 from __future__ import annotations
 
@@ -24,18 +25,29 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
-from . import _halo
+from . import _grid, _halo
 from .hcz_fused import check_state, kernel_constants
 
 LAUNCHES = 0
 HALO_LAUNCHES = 0
-# z-planes of validity one step consumes: ∇(∇²φ) two and the pull streaming
-# one (pallas_hcz3d.py:27)
-REACH = 3
+# z-planes of validity one step consumes.  f needs 3: u reads ∇(∇²φ), two
+# planes of φ away, and the pull streaming one more.  g needs one more: its
+# forcing reads E = ∇(P − ρ/3), and P one plane away reads that u.  So
+# nsub steps need 3·nsub + 1 planes; 4·nsub covers them.  The Pallas
+# entry's HALO = 3 (pallas_hcz3d.py:27) is one plane short for g (errors
+# up to 9e-11 in float64 at nsub 1 on a noisy droplet, below float32's
+# rounding on the 128³ droplet).
+REACH = 4
 # bytes and operations of one float32 step a cell (each input read once,
 # each output written once): f and g read and written (2 × 19 populations),
 # about 1,300 operations
 WORK_PER_CELL = (304, 1300)
+# the kernel's block tile (TILE_Y, TILE_X in csrc/hcz3d_step.cu), rows x
+# columns, and the z-planes a block marches up (ZC)
+TILE = (8, 32)
+ZC = 16
+# kernel launches a step: the φ pass and the tile
+LAUNCHES_PER_STEP = 2
 
 
 def run_fused_3d(f, g, p: HCZParams, n_steps: int):
@@ -60,40 +72,36 @@ def run_fused_3d(f, g, p: HCZParams, n_steps: int):
 
 
 def _launch(f, g, p: HCZParams, n_steps: int, halo_route: bool):
-    """``n_steps`` kernel steps on the CUDA tensors ``(f, g)``, ping-ponging
-    two new pairs of buffers; counts each in ``HALO_LAUNCHES`` or
-    ``LAUNCHES``."""
+    """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
+    which ping-pongs two new pairs of buffers; counts them in
+    ``HALO_LAUNCHES`` or ``LAUNCHES``."""
     global LAUNCHES, HALO_LAUNCHES
     from . import _build
 
-    lib = _build.load()
-    step = lib.hcz3d_step_f32 if f.dtype == torch.float32 else lib.hcz3d_step_f64
-    consts = kernel_constants(p)
     _, nz, ny, nx = f.shape
-    bufs = ((torch.empty_like(f), torch.empty_like(g)),
-            (torch.empty_like(f), torch.empty_like(g)))
-    phi, lap, P = (torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
-                   for _ in range(3))
-    src = (f, g)
+    _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
+    lib = _build.load()
+    run = lib.hcz3d_step_f32 if f.dtype == torch.float32 else lib.hcz3d_step_f64
+    consts = kernel_constants(p)
+    a = (torch.empty_like(f), torch.empty_like(g))
+    b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
+    b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
+    phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
     # the library's runtime launches into the context current on this
     # thread: make it the tensor's device
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            err = step(src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
-                       dst[1].data_ptr(), phi.data_ptr(), lap.data_ptr(),
-                       P.data_ptr(), nz, ny, nx, ctypes.addressof(consts),
-                       stream)
-            if err != 0:
-                raise RuntimeError("hcz3d_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            if halo_route:
-                HALO_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
-            src = dst
-    return src
+        err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                  a[1].data_ptr(), *b_ptrs, phi.data_ptr(), nz, ny, nx,
+                  n_steps, ctypes.addressof(consts), stream)
+    if err != 0:
+        raise RuntimeError("hcz3d_step launch failed: "
+                           + lib.sc_error_string(err).decode())
+    if halo_route:
+        HALO_LAUNCHES += n_steps
+    else:
+        LAUNCHES += n_steps
+    return a if n_steps % 2 else b
 
 
 def step_halo_plain_3d(f_ext, g_ext, p: HCZParams, nsub: int = 1, halo=None):
@@ -111,9 +119,10 @@ def step_fused_halo_3d(f_ext, g_ext, p: HCZParams, nsub: int = 1, halo=None):
     already filled; returns the interior ``(f, g)``, each
     ``(19, nz_ext − 2·halo, ny, nx)``.
 
-    ``halo`` z-planes on each side, ``REACH · nsub`` by default (the
-    Pallas entry's fixed width, ``pallas_hcz3d.py:307``); a wider halo
-    gives the same interior.  The kernel wraps its z index at the slab's
+    ``halo`` z-planes on each side, ``REACH · nsub`` by default (one plane
+    a sub-step wider than the Pallas entry's fixed width,
+    ``pallas_hcz3d.py:307``; see ``REACH``); a wider halo gives the same
+    interior.  The kernel wraps its z index at the slab's
     ends; those planes reach at most ``REACH · nsub`` planes in, all of
     them cropped.
     """

@@ -413,7 +413,9 @@ def make_fused_hcz_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
 def make_fused_hcz3d_step(mesh: Mesh, p, nsub: int = 1) -> HaloStep:
     """Fused HCZ 3D (D3Q19) step on a z-cut periodic box: state ``(f, g)``,
     each ``(19, nz, ny, nx)`` cut on z along mesh axis 'z'; ring exchange of
-    ``3 · nsub`` z-planes, then the halo-in kernel entry on each shard;
+    ``REACH · nsub = 4 · nsub`` z-planes (g reads one plane more a step than
+    f; see ``hcz3d_fused.REACH``), then the halo-in kernel entry on each
+    shard;
     returns the new ``(f, g)`` after ``nsub`` steps."""
     H = _halo_width(hcz3d_fused.REACH, nsub)
     spec = (None, "z", None, None)

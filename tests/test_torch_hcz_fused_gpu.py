@@ -13,7 +13,10 @@ gravity at ω = 1.25 and at its config's ω = 1.96, the layered channel
 obstacle (mirrored reads off the walls), lattices that are not multiples
 of the 2D kernel's 32 × 8 tile and reach past its 2-cell halo (channels of
 45 × 37 and 3 × 5, periodic 7 × 2, nx × ny), an obstacle across its tile
-edges, and the 64³ droplet at ω = 1.2.
+edges, and the D3Q19 droplet at ω = 1.2 in a 64³ box, in a box that is not
+a multiple of the 3D kernel's 32 × 8 tile or 16-plane chunk (37 × 11 × 9)
+and in one thinner in z than its 7-plane φ window (33 × 9 × 3); the 3D
+entries make one C call a call.
 Tolerances: float32 over 5 steps rtol 3e-5, atol 3e-6 in 2D and rtol 5e-5,
 atol 5e-6 in 3D (summation order and FMA contraction differ from the plain
 path); float64 over 20 steps atol 1e-12, tight enough to separate an
@@ -108,10 +111,16 @@ def test_launches_count_steps(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_hcz3d_kernel_matches_plain(cuda_device, dtype):
+@pytest.mark.parametrize("box", [(64, 64, 64), (37, 11, 9), (33, 9, 3)])
+def test_hcz3d_kernel_matches_plain(cuda_device, box, dtype):
+    """The 64³ droplet, a box that is not a multiple of the 32 × 8 tile or
+    the 16-plane chunk, and one thinner in z than the 7-plane φ window
+    (nx × ny × nz)."""
     p = hcz.HCZParams(omega=1.2, kappa=5e-4, gravity=-1e-6)
-    st = hcz.init_droplet_3d(64, 64, 64, p, dtype=dtype, device=cuda_device)
-    fluid = hcz.geometry_periodic_3d(64, 64, 64, device=cuda_device)
+    radius = None if box[0] == 64 else min(box) / 3.0
+    st = hcz.init_droplet_3d(*box, p, radius=radius, dtype=dtype,
+                             device=cuda_device)
+    fluid = hcz.geometry_periodic_3d(*box, device=cuda_device)
     n = STEPS[dtype]
     before = hcz3d_fused.LAUNCHES
     out = hcz3d_fused.run_fused_3d(*st, p, n)
@@ -119,6 +128,60 @@ def test_hcz3d_kernel_matches_plain(cuda_device, dtype):
     assert hcz3d_fused.LAUNCHES == before + n
     ref = hcz.run(st, fluid, p, n, lattice=hcz.D3Q19, three_d=True)
     _assert_close(out, ref, TOL3[dtype])
+
+
+class _CountingLib:
+    """The kernel library, counting the calls of its C entries."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, 0
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("hcz3d_step"):
+            return fn
+
+        def call(*args):
+            self.calls += 1
+            return fn(*args)
+        return call
+
+
+def test_hcz3d_one_ctypes_call_a_call(cuda_device, monkeypatch):
+    """A call of n steps is one C call and adds n to ``LAUNCHES`` (0 and no
+    call for 0 steps); the halo entry adds nsub to ``HALO_LAUNCHES``."""
+    from multiphase_lbm_tpu_torch.ops import _build
+
+    counting = _CountingLib(_build.load())
+    monkeypatch.setattr(_build, "load", lambda: counting)
+    p = hcz.HCZParams(omega=1.2)
+    f, g = hcz.init_droplet_3d(37, 11, 9, p, radius=3.0, device=cuda_device)
+    for n in (0, 1, 2, 7):
+        before, calls = hcz3d_fused.LAUNCHES, counting.calls
+        hcz3d_fused.run_fused_3d(f, g, p, n)
+        assert hcz3d_fused.LAUNCHES == before + n
+        assert counting.calls == calls + (n > 0)
+    f2, g2 = hcz.init_droplet_3d(16, 16, 40, p, device=cuda_device)
+    for nsub in (1, 2):
+        before, calls = hcz3d_fused.HALO_LAUNCHES, counting.calls
+        hcz3d_fused.step_fused_halo_3d(f2, g2, p, nsub)
+        assert hcz3d_fused.HALO_LAUNCHES == before + nsub
+        assert counting.calls == calls + 1
+    torch.cuda.synchronize()
+
+
+def test_hcz3d_refuses_boxes_past_32_bit_indices(cuda_device):
+    """19·nz·ny·nx >= 2^31 raises before anything is allocated or
+    launched."""
+    p = hcz.HCZParams()
+    f = torch.empty((19, 1024, 1024, 108), device=cuda_device)
+    allocated = torch.cuda.memory_allocated()
+    before = hcz3d_fused.LAUNCHES
+    with pytest.raises(ValueError, match="2\\^31"):
+        hcz3d_fused.run_fused_3d(f, f, p, 1)
+    assert torch.cuda.memory_allocated() == allocated
+    assert hcz3d_fused.LAUNCHES == before
+    del f
 
 
 def test_kernels_leave_input_untouched(cuda_device):

@@ -185,14 +185,16 @@ def _halo_hcz3d():
     jp = jhcz.HCZParams(omega=1.2, gravity=0.0, kappa=0.01)
     f, g = _noisy(jhcz.init_droplet_3d(16, 16, 32, jp, radius=5.0,
                                        dtype=jnp.float64), 7)
-    ext = [_slab(a, 2, 22, 1) for a in (f, g)]   # z-planes 8..15 of 32
+    # z-planes 0..23 of 32: the port's entry crops its REACH·nsub = 8
+    # planes a side (planes 8..15), the Pallas entry its 6 (planes 6..17)
+    ext = [_slab(a, 0, 24, 1) for a in (f, g)]
     ref = pallas_hcz3d.step_fused_halo_3d(
-        *(jnp.asarray(a, jnp.float32) for a in ext), jp, tile=8,
+        *(jnp.asarray(a, jnp.float32) for a in ext), jp, tile=4,
         interpret=True, nsub=2)
     out = hcz3d_fused.step_fused_halo_3d(
         *(_t(a, torch.float32) for a in ext),
         hcz_params_from_jax(dataclasses.asdict(jp)), nsub=2)
-    return list(zip(out, ref))
+    return [(o, np.asarray(r)[:, 2:-2]) for o, r in zip(out, ref)]
 
 
 @pytest.mark.parametrize("family,run", [
@@ -340,8 +342,8 @@ def test_halo_bound_cells():
     """Sub-step j of nsub keeps the own cells and reach·(nsub − j) more on
     each side of every cut axis."""
     case, _ = multichip_check.make_case("hcz3d", "cpu")
-    # 4 z shards of 8 planes of 16 × 16, nsub 2, reach 3: 14 then 8 planes
-    assert multichip_check.halo_bound_cells(case) == 4 * 16 * 16 * (14 + 8) / 2
+    # 4 z shards of 8 planes of 16 × 16, nsub 2, reach 4: 16 then 8 planes
+    assert multichip_check.halo_bound_cells(case) == 4 * 16 * 16 * (16 + 8) / 2
     case, _ = multichip_check.make_case("sc2d", "cpu")
     # 2 × 2 shards of 16 rows × 32 columns, nsub 2, reach 2
     assert multichip_check.halo_bound_cells(case) == 4 * (20 * 36 + 16 * 32) / 2
