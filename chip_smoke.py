@@ -185,9 +185,10 @@ random walls at N = 384, four seeds in each type: identical maps.
      beside the single-lattice kernel's, the exchange's share of the step
      and the halo entries' time (CUDA events, not gated: shards on one card
      run one after another, so this measures overhead, not scaling).
-Each kernel's launch count is set to 0 just before its own main path
-(phases 4-5, 5b, 6-8, 9, 10, 11, 13, 14, 12) and read just after; the halo
-routes count apart (HALO_LAUNCHES).  Then one JSON line with every kernel of
+Each kernel's counted steps (``kernel.steps.<family>`` of the recorder in
+``utils/profiling``) are read from a zero taken just before its own main
+path (phases 4-5, 5b, 6-8, 9, 10, 11, 13, 14, 12); the halo routes count
+apart (``kernel.steps.<family>.halo``).  Then one JSON line with every kernel of
 the paths, the layered channel's sc_step and the six halo routes
 included (pulsatile_step's and hcz3d_step's entries also
 with their launches_per_step from the N = 384 and 128³ profiles), and, last,
@@ -233,6 +234,27 @@ F64_FLOP_PER_S = 34e12
 # do (each field formed once per cell), counted from the arithmetic of the
 # step: the cells times the wrapper's WORK_PER_CELL (per_cell), or
 # combustion_fused.step_work, which counts them from the lattice's flags.
+
+
+# the step counts of the wrappers, read from the zero of :func:`_zero`
+_ZEROS = {}
+
+
+def _step_counter(mod, halo=False):
+    return f"kernel.steps.{mod.FAMILY}" + (".halo" if halo else "")
+
+
+def _zero(mod, halo=False):
+    """Count ``mod``'s kernel steps from here on."""
+    from multiphase_lbm_tpu_torch.utils import profiling
+    _ZEROS[_step_counter(mod, halo)] = profiling.counter(_step_counter(mod, halo))
+
+
+def _steps(mod, halo=False):
+    """The kernel steps ``mod`` counted since :func:`_zero`."""
+    from multiphase_lbm_tpu_torch.utils import profiling
+    name = _step_counter(mod, halo)
+    return profiling.counter(name) - _ZEROS.get(name, 0)
 
 
 def per_cell(mod, cells):
@@ -677,7 +699,7 @@ def main():
     say(f"[bench plain] {json.dumps(rec_plain)}")
     check(rd_plain.valid, rec_plain)
     del rd_plain
-    sc_fused.LAUNCHES = 0              # count the main path's launches only
+    _zero(sc_fused)              # count the main path's steps only
     rec, rd, f0 = bench.run(size=n, steps=200, steps2=600)
     say(f"[bench kernel] {json.dumps(rec)}")
     check(rd.valid, rec)
@@ -694,7 +716,7 @@ def main():
         f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
         + f"; busy {prof['device_busy_ms_per_step']:.5f} ms a step, idle "
         f"{100 * prof['idle_share']:.1f}% under the profiler, on {card}")
-    bench_launches = sc_fused.LAUNCHES
+    bench_launches = _steps(sc_fused)
     check(bench_launches > 0, "the headline did not launch the kernel")
     out = rd.out
     check(bool(torch.isfinite(out).all()), "non-finite state")
@@ -716,24 +738,24 @@ def main():
     # ---- 5. SC CLI ----
     run_cli(coolbm, ["laplace2D_sc", "--f32", "--steps", "800"],
             ("sol_0000000.vtk", "sol_0000400.vtk", "mass.dat", "energy.dat"))
-    check(sc_fused.LAUNCHES > bench_launches, "the CLI did not launch the kernel")
-    sc_launches = sc_fused.LAUNCHES
+    check(_steps(sc_fused) > bench_launches, "the CLI did not launch the kernel")
+    sc_launches = _steps(sc_fused)
 
     # ---- 5b. SC layered channel: the gate, the CLI, the step's time ----
-    sc_fused.LAUNCHES = 0              # count the layered path's launches only
+    _zero(sc_fused)              # count the layered path's steps only
     t0 = time.perf_counter()
     _, _, err_lp = layered_poiseuille.run()        # 64², 40,000 float64 steps
     secs = time.perf_counter() - t0
     say(f"[gate] layered_poiseuille 64x64 40000 float64 steps through sc_step:"
         f" max relative deviation {err_lp:.4f} (< {layered_poiseuille.GATE}),"
-        f" {secs:.2f} s wall, {sc_fused.LAUNCHES} launches")
-    check(sc_fused.LAUNCHES >= 40000, "the layered gate did not launch sc_step")
+        f" {secs:.2f} s wall, {_steps(sc_fused)} launches")
+    check(_steps(sc_fused) >= 40000, "the layered gate did not launch sc_step")
     check(err_lp < layered_poiseuille.GATE,
           f"layered Poiseuille deviation {err_lp}")
-    before = sc_fused.LAUNCHES
+    before = _steps(sc_fused)
     run_cli(coolbm, ["twoLayeredFlow2D_sc", "--steps", "400"],
             ("sol_0000000.vtk", "energy.dat", "mass.dat"))
-    check(sc_fused.LAUNCHES > before, "twoLayeredFlow2D_sc did not launch "
+    check(_steps(sc_fused) > before, "twoLayeredFlow2D_sc did not launch "
           "the kernel")
     p_l = layered_params(gx_u=1e-6)
     fl_l = sc.geometry_channel_walls(64, 64, device=dev)
@@ -745,7 +767,7 @@ def main():
     rd_lp = measure_mlups_slope(lambda k: (lambda v: sc.run(v, fl_l, p_l, k)),
                                 f_l, 5, 15, 64 * 64)
     check(rd_l.valid and rd_lp.valid, "invalid layered slope reading")
-    layered_launches = sc_fused.LAUNCHES
+    layered_launches = _steps(sc_fused)
     say(f"[main path] layered channel 64x64 float64: kernel "
         f"{rd_l.ms_per_step:.5f} ms per step vs plain {rd_lp.ms_per_step:.3f}"
         f" ms; {layered_launches} sc_step launches on this path, on {card}")
@@ -757,11 +779,11 @@ def main():
     say(f"[bench rti plain] {json.dumps(rec_rti_plain)}")
     check(rd.valid, rec_rti_plain)
     del rd
-    hcz_fused.LAUNCHES = 0             # count the RTI path's launches only
+    _zero(hcz_fused)             # count the RTI path's steps only
     rec_rti, rd, st0 = bench.run(model="rti", steps=50, steps2=150)
     say(f"[bench rti kernel] {json.dumps(rec_rti)}")
     check(rd.valid, rec_rti)
-    check(hcz_fused.LAUNCHES > 0, "RTI-2048 did not launch the kernel")
+    check(_steps(hcz_fused) > 0, "RTI-2048 did not launch the kernel")
     check(all(bool(torch.isfinite(t).all()) for t in rd.out),
           "non-finite RTI state")
     m0 = float(st0[0].double().sum())
@@ -785,11 +807,11 @@ def main():
           "RTI at N=256 departs from the published curves")
 
     # ---- 8. RTI CLI ----
-    before_cli = hcz_fused.LAUNCHES
+    before_cli = _steps(hcz_fused)
     run_cli(coolbm, ["rayleighTaylor2D", "--f32", "--steps", "6400"],
             ("sol_0000000.vtk", "sol_0003200.vtk", "energy.dat",
              "spike_bubble_position.dat", "spike_bubble_velocity.dat"))
-    hcz_launches = hcz_fused.LAUNCHES
+    hcz_launches = _steps(hcz_fused)
     check(hcz_launches > before_cli, "the RTI CLI did not launch the kernel")
 
     # ---- 9. 3D main path: the 128³ droplet and the laplace3D CLI ----
@@ -798,7 +820,7 @@ def main():
     say(f"[bench hcz3d plain] {json.dumps(rec_3d_plain)}")
     check(rd.valid, rec_3d_plain)
     del rd
-    hcz3d_fused.LAUNCHES = 0           # count the 3D path's launches only
+    _zero(hcz3d_fused)           # count the 3D path's steps only
     rec_3d, rd, st0 = bench.run(model="hcz3d", steps=50, steps2=150)
     say(f"[bench hcz3d kernel] {json.dumps(rec_3d)}")
     check(rd.valid, rec_3d)
@@ -808,7 +830,7 @@ def main():
     drift = abs(float(rd.out[0].double().sum()) - m0) / m0
     say(f"[physics] 128^3 droplet phase-mass drift {drift:.3e} (< 1e-4)")
     check(drift < 1e-4, f"3D phase-mass drift {drift}")
-    bench3d_launches = hcz3d_fused.LAUNCHES
+    bench3d_launches = _steps(hcz3d_fused)
     check(bench3d_launches > 0, "the 3D bench did not launch the kernel")
     del rd, st0
     # B5's launches a step, from a profile in a process of its own (see
@@ -833,9 +855,9 @@ def main():
           f"{hcz3d_fused.LAUNCHES_PER_STEP}")
     run_cli(coolbm, ["laplace3D", "--f32", "--steps", "200"],
             ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"))
-    check(hcz3d_fused.LAUNCHES > bench3d_launches,
+    check(_steps(hcz3d_fused) > bench3d_launches,
           "the laplace3D CLI did not launch the kernel")
-    hcz3d_launches = hcz3d_fused.LAUNCHES
+    hcz3d_launches = _steps(hcz3d_fused)
 
     # ---- 10. Fakhari main path: the 2048² bubble ----
     rec_fk_plain, rd, _ = bench.run(model="fakhari", steps=2, steps2=6,
@@ -843,11 +865,11 @@ def main():
     say(f"[bench fakhari plain] {json.dumps(rec_fk_plain)}")
     check(rd.valid, rec_fk_plain)
     del rd
-    fakhari_fused.LAUNCHES = 0         # count the Fakhari path's launches only
+    _zero(fakhari_fused)         # count the Fakhari path's steps only
     rec_fk, rd, st0 = bench.run(model="fakhari", steps=100, steps2=300)
     say(f"[bench fakhari kernel] {json.dumps(rec_fk)}")
     check(rd.valid, rec_fk)
-    check(fakhari_fused.LAUNCHES > 0, "the Fakhari bench did not launch the kernel")
+    check(_steps(fakhari_fused) > 0, "the Fakhari bench did not launch the kernel")
     check(all(bool(torch.isfinite(t).all()) for t in rd.out),
           "non-finite Fakhari state")
     m0 = float(st0[0].double().sum())
@@ -876,10 +898,10 @@ def main():
     check(mdrift < 1e-12, f"Fakhari mass drift {mdrift}")
     check(C[32, 32] < 0.05 and C[2, 2] > 0.95, "the Fakhari bubble moved")
     del st
-    before_cli = fakhari_fused.LAUNCHES
+    before_cli = _steps(fakhari_fused)
     run_cli(coolbm, ["Young_Laplace2D", "--f32", "--steps", "2000"],
             ("sol_0000000.vtk", "sol_0001000.vtk", "energy.dat", "mass.dat"))
-    fakhari_launches = fakhari_fused.LAUNCHES
+    fakhari_launches = _steps(fakhari_fused)
     check(fakhari_launches > before_cli,
           "the Young_Laplace2D CLI did not launch the kernel")
 
@@ -889,11 +911,11 @@ def main():
     say(f"[bench scrt plain] {json.dumps(rec_rt_plain)}")
     check(rd.valid, rec_rt_plain)
     del rd
-    scrt_fused.LAUNCHES = 0            # count the SC-RT path's launches only
+    _zero(scrt_fused)            # count the SC-RT path's steps only
     rec_rt, rd, f0 = bench.run(model="scrt", steps=100, steps2=300)
     say(f"[bench scrt kernel] {json.dumps(rec_rt)}")
     check(rd.valid, rec_rt)
-    check(scrt_fused.LAUNCHES > 0, "the SC-RT bench did not launch the kernel")
+    check(_steps(scrt_fused) > 0, "the SC-RT bench did not launch the kernel")
     check(bool(torch.isfinite(rd.out).all()), "non-finite SC-RT state")
     m0 = float(f0.double().sum())
     drift = abs(float(rd.out.double().sum()) - m0) / m0
@@ -915,13 +937,13 @@ def main():
             check(row["col0"] < scrt_reference.ATOL
                   and row["colmid"] < scrt_reference.ATOL,
                   f"SC-RT departs from the C++ capture at step {step}: {row}")
-    before_cli = scrt_fused.LAUNCHES
+    before_cli = _steps(scrt_fused)
     run_cli(coolbm, ["RayleighTaylor2D_sc", "--f32", "--steps", "200"],
             ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat", "mass.dat",
              "spike_bubble_position.dat"))
-    check(scrt_fused.LAUNCHES > before_cli,
+    check(_steps(scrt_fused) > before_cli,
           "the RayleighTaylor2D_sc CLI did not launch the kernel")
-    scrt_launches = scrt_fused.LAUNCHES
+    scrt_launches = _steps(scrt_fused)
 
     # ---- 13. combustion (before phase 12's worker window) ----
     t13 = time.perf_counter()
@@ -1035,7 +1057,7 @@ def main():
         check(rd.valid, rec_p)
         recs_cb[(size, flow_only)] = [rec_p]
         del rd
-    combustion_fused.LAUNCHES = 0      # count the combustion path's launches only
+    _zero(combustion_fused)      # count the combustion path's steps only
     for size, flow_only in cb_cells:
         rec_k, rd, _ = bench.run(model="combustion", size=size, steps=200,
                                  steps2=600, flow_only=flow_only,
@@ -1070,9 +1092,9 @@ def main():
             f" at the combustion channel {pc.nx}x{pc.ny} {what} float32 on "
             f"{card}")
         del rd, st
-    check(combustion_fused.LAUNCHES > 0,
+    check(_steps(combustion_fused) > 0,
           "the combustion bench did not launch the kernel")
-    before_cli = combustion_fused.LAUNCHES
+    before_cli = _steps(combustion_fused)
     with tempfile.TemporaryDirectory() as tmp:
         stage1, stage2 = os.path.join(tmp, "stage1"), os.path.join(tmp, "stage2")
         audit = ("inlet_massflow.dat", "inlet_massflow_names.dat",
@@ -1100,9 +1122,9 @@ def main():
                      "0.01", "--steps", "1000", "--scalar-steps", "200"],
             ("thermal-energy.dat", "conservation.dat"))
     run_cli(coolbm, ["combustion", "--f32", "--bench"], ())
-    check(combustion_fused.LAUNCHES > before_cli,
+    check(_steps(combustion_fused) > before_cli,
           "the combustion CLI did not launch the kernel")
-    combustion_launches = combustion_fused.LAUNCHES
+    combustion_launches = _steps(combustion_fused)
     say(f"[combustion] phase 13 {time.perf_counter() - t13:.1f} s "
         f"(kernel vs plain and the capture {secs_cmp:.1f} s)")
 
@@ -1164,7 +1186,7 @@ def main():
     # entries are also held against their plain version on the same
     # extended slabs
     for mod in mc.HALO_ENTRIES.values():
-        mod.HALO_LAUNCHES = 0          # count the decomposition's launches only
+        _zero(mod, halo=True)          # count the decomposition's steps only
     halo_case = {"sc": "sc", "hcz": "hcz_wide", "fakhari": "fakhari",
                  "scrt": "scrt", "hcz3d": "hcz3d", "combustion": "combustion"}
     full = {}
@@ -1193,7 +1215,7 @@ def main():
                 f"{tol['atol']}) {'ok' if res['plain_ok'] else 'FAIL'}")
             check(res["plain_ok"], f"{name}: the halo entries disagree with "
                   f"their plain version at full width: {res['plain_err']}")
-    halo_launches = {f: mod.HALO_LAUNCHES
+    halo_launches = {f: _steps(mod, halo=True)
                      for f, mod in mc.HALO_ENTRIES.items()}
     check(all(v > 0 for v in halo_launches.values()),
           f"a decomposed path did not launch its halo kernel: {halo_launches}")
@@ -1213,7 +1235,7 @@ def main():
             _build.build_log, "pulsatile_step", PB_KERNELS):
         say(f"[build] {name}: {regs} registers, spill stores {stores} B, "
             f"spill loads {loads} B")
-    pulsatile_fused.LAUNCHES = 0       # count the pulsatile path's launches only
+    _zero(pulsatile_fused)       # count the pulsatile path's steps only
     pb_per_step = {}
     for size, a, b, prof_steps in ((384, 100, 300, 50), (64, 500, 1500, 200)):
         rec_k, rd, st0 = bench.run(model="pulsatile", size=size, steps=a,
@@ -1244,7 +1266,7 @@ def main():
         del rd, st0
     check(recs_pl[384][0]["fluid_share"] > 0.5,
           f"the N=384 vessel is not open: {recs_pl[384][0]['fluid_share']}")
-    check(pulsatile_fused.LAUNCHES > 0, "the pulsatile bench did not launch "
+    check(_steps(pulsatile_fused) > 0, "the pulsatile bench did not launch "
           "the kernel")
     # The plain runs behind the gates are bound by the host (hundreds of
     # small launches a step): after the last timed phase they run in worker
@@ -1258,7 +1280,7 @@ def main():
                               device="cuda", verbose=False)
         fut_core = pool.submit(timed, "womersley", "run_validation",
                                device="cuda", verbose=False)
-        before_cli = pulsatile_fused.LAUNCHES
+        before_cli = _steps(pulsatile_fused)
         t0 = time.perf_counter()
         produced = run_cli(coolbm, ["PulsatileBloodFlow2D", "--f32", "--steps",
                                     "300"],
@@ -1266,12 +1288,12 @@ def main():
                             "sol_0000300.vtk"))
         check(sum(n.startswith("sol_") for n in produced) == 101,
               "PulsatileBloodFlow2D --steps 300 did not write 101 dumps")
-        check(pulsatile_fused.LAUNCHES > before_cli,
+        check(_steps(pulsatile_fused) > before_cli,
               "the PulsatileBloodFlow2D CLI did not launch the kernel")
         say(f"[cli] PulsatileBloodFlow2D {time.perf_counter() - t0:.1f} s")
         # the main path ends here; the gate's runs hold the kernel to the
         # plain path and are not counted
-        pulsatile_launches = pulsatile_fused.LAUNCHES
+        pulsatile_launches = _steps(pulsatile_fused)
         t0 = time.perf_counter()
         sims32, diag = pulsatile_fullrun.kernel_runs("f32", device=dev)
         sims64, _ = pulsatile_fullrun.kernel_runs("f64", device=dev)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import time
 from pathlib import Path
 
+from ..utils.profiling import span
+
 
 class DatLogger:
     """Append whitespace-separated columns to a .dat file."""
@@ -19,9 +21,11 @@ class DatLogger:
         self._fh = open(self.path, mode)
 
     def log(self, *cols, fmt: str = "%.16g"):
-        self._fh.write(" ".join(
-            fmt % c if isinstance(c, float) else str(c) for c in cols) + "\n")
-        self._fh.flush()
+        with span("log"):
+            self._fh.write(" ".join(
+                fmt % c if isinstance(c, float) else str(c) for c in cols)
+                + "\n")
+            self._fh.flush()
 
     def close(self):
         self._fh.close()

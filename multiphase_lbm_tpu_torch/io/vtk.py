@@ -17,6 +17,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def _fmt_floats(a: np.ndarray) -> np.ndarray:
     """Format float array like C++ ``operator<<(float)`` (6 significant
@@ -85,7 +87,10 @@ class VtkWriter:
         return out.getvalue()
 
     def write(self, path):
-        Path(path).write_text(self.dumps())
+        with span("vtk.format"):
+            text = self.dumps()
+        with span("vtk.disk"):
+            Path(path).write_text(text)
 
 
 def sol_filename(time_iter: int, prefix: str = "sol") -> str:

@@ -23,17 +23,20 @@ conjugate fix, as :func:`..models.combustion.run` does; ``all_first_steps``
 runs every step so, which is the shipped reference binary's behaviour (its
 ``first_step`` flag is never cleared, ``tests/test_combustion_parity.py``).
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step), so
-a run can show that its main path went through the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.combustion_step``,
+``kernel.launches.combustion_step``), so a run can show that its main path
+went through the kernel, and records the ``kernel.prepare`` and
+``kernel.enqueue`` spans.
 
 :func:`step_fused_halo` is the counterpart of ``pallas_combustion.
 step_fused_halo``, the halo-in entry of the decomposed channel
 (``parallel/sharding.make_fused_combustion_step``): the same kernel in its
 slab mode (a slab of rows of the global lattice, each row's boundary role
 decided by its global row; see the source's header note), ``nsub`` steps on
-a halo-extended slab, then the interior.  Its steps count in
-``HALO_LAUNCHES``, apart from ``LAUNCHES``; :func:`step_halo_plain` is its
-plain version.  :func:`run_fused` is the same slab mode on the whole lattice.
+a halo-extended slab, then the interior.  Its steps and launches count
+apart, with ``.halo`` after the counters' names; :func:`step_halo_plain` is
+its plain version.  :func:`run_fused` is the same slab mode on the whole lattice.
 """
 from __future__ import annotations
 
@@ -46,9 +49,9 @@ from . import _halo
 from ..models import combustion as cbm
 from ..models.combustion import (C, M_MAT, Q, W, CombustionParams,
                                  CombustionState)
+from ..utils.profiling import count_launches, span
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "combustion_step"
 
 # Rows a step reads away from a row of the slab: the LI2014 conjugate link
 # (1), the one-sided gradients next to a solid (2) and the streaming (1), as
@@ -525,7 +528,6 @@ def run_fused(state: CombustionState, p: CombustionParams, n_steps: int,
               all_first_steps: bool = False) -> CombustionState:
     """Advance ``n_steps`` steps (see the module docstring for
     ``first_step`` and ``all_first_steps``)."""
-    global LAUNCHES
     check_params(p)
     check_state(state, p)
     if n_steps < 0:
@@ -543,43 +545,54 @@ def run_fused(state: CombustionState, p: CombustionParams, n_steps: int,
         _TABLES[key] = kernel_tables(p, device, dtype)
     mode = 2 if all_first_steps else (1 if first_step else 0)
     out = _launch(state[:8], _TABLES[key], p, 0, n_steps, konv, mode)
-    LAUNCHES += n_steps
     if konv:
         return CombustionState(*out, state.q_heat)
     return CombustionState(out[0], *state[1:])
 
 
+def launches_per_step(p: CombustionParams, konv: bool) -> int:
+    """Kernel launches a step: the collide-and-stream, the fields with all
+    four populations, and the boundary phase in the inflow/outflow channel
+    with all four (``run_steps`` in the source)."""
+    return 1 + int(konv) + int(konv and p.topology == "inflow_outflow")
+
+
 def _launch(args8, tb, p: CombustionParams, row0: int, n_steps: int,
-            konv: bool, mode: int) -> tuple:
+            konv: bool, mode: int, halo_route: bool = False) -> tuple:
     """``n_steps`` kernel steps of the slab ``args8`` (CUDA tensors of
     ``(9, ny, nx)``; the whole lattice when ``ny == p.ny`` and ``row0`` is
     0) whose local row 0 is global row ``row0``, with the static inputs
     ``tb``; returns the 8 arrays after them (the first only is advanced
-    without ``konv``).  ``mode``: the kernel's first_mode."""
+    without ``konv``).  ``mode``: the kernel's first_mode.  Counts them
+    (``.halo`` for the halo route)."""
     from . import _build
 
-    lib = _build.load()
-    dtype, device = args8[0].dtype, args8[0].device
-    run = (lib.combustion_run_f32 if dtype == torch.float32
-           else lib.combustion_run_f64)
-    consts = kernel_constants(p, konv)
-    _, ny, nx = args8[0].shape
-    a = torch.stack(list(args8))
-    b = torch.empty_like(a)
-    fld = torch.empty((5, ny, nx), dtype=dtype, device=device)
-    side = torch.empty((3, Q, 2 * (nx + ny)), dtype=dtype, device=device)
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = run(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
-                  tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
-                  tb["fs_row"].data_ptr(), fld.data_ptr(), side.data_ptr(),
-                  ny, nx, row0 % p.ny,
-                  p.ny, n_steps, mode, ctypes.addressof(consts), stream)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        lib = _build.load()
+        dtype, device = args8[0].dtype, args8[0].device
+        run = (lib.combustion_run_f32 if dtype == torch.float32
+               else lib.combustion_run_f64)
+        consts = kernel_constants(p, konv)
+        _, ny, nx = args8[0].shape
+        a = torch.stack(list(args8))
+        b = torch.empty_like(a)
+        fld = torch.empty((5, ny, nx), dtype=dtype, device=device)
+        side = torch.empty((3, Q, 2 * (nx + ny)), dtype=dtype, device=device)
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = run(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
+                      tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
+                      tb["fs_row"].data_ptr(), fld.data_ptr(), side.data_ptr(),
+                      ny, nx, row0 % p.ny,
+                      p.ny, n_steps, mode, ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("combustion_step launch failed: "
                            + lib.sc_error_string(err).decode())
+    count_launches(FAMILY, n_steps, n_steps * launches_per_step(p, konv),
+                   halo_route)
     return (b if n_steps % 2 else a).unbind(0)
 
 
@@ -631,7 +644,6 @@ def step_fused_halo(args8, tables_ext, row0: int, p: CombustionParams,
     kernel's row index wraps at the slab's edges; that reaches at most
     ``REACH · nsub`` rows in, all of them cropped.
     """
-    global HALO_LAUNCHES
     check_params(p)
     _check_slab(args8, p)
     ny_ext = args8[0].shape[1]
@@ -642,8 +654,7 @@ def step_fused_halo(args8, tables_ext, row0: int, p: CombustionParams,
     _check_tables(tables_ext, row0, p, ny_ext, device, args8[0].dtype)
     if device.type == "cpu":
         return step_halo_plain(args8, row0, p, konv, nsub, halo)
-    out = _launch(args8, tables_ext, p, row0, nsub, konv, 0)
-    HALO_LAUNCHES += nsub
+    out = _launch(args8, tables_ext, p, row0, nsub, konv, 0, halo_route=True)
     if not konv:
         out = out[:1] + tuple(args8[1:])
     return tuple(_halo.interior(t, halo, 1) for t in out)

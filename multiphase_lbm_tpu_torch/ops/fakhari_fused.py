@@ -13,10 +13,11 @@ launch.  On a CPU tensor, and only there, they run the plain PyTorch
 version (:func:`..models.fakhari.run`, and :func:`step_halo_plain`), which
 is what the CPU tests exercise.
 
-``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one per step), and ``HALO_LAUNCHES`` those launched by
-:func:`step_fused_halo`, so a run can show that its main path went through
-the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.fakhari_step``,
+``kernel.launches.fakhari_step``; ``.halo`` after them for
+:func:`step_fused_halo`), so a run can show that its main path went through
+the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
 """
 from __future__ import annotations
 
@@ -26,10 +27,14 @@ import torch
 
 from ..models import fakhari as fk
 from ..models.fakhari import FakhariParams
+from ..utils.profiling import count_launches, span
 from . import _halo
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "fakhari_step"
+# kernel launches a step (collide-and-stream, φ, velocity), and the φ pass
+# that opens each call
+LAUNCHES_PER_STEP = 3
+LAUNCHES_PER_CALL = 1
 # rows of validity one step consumes: the collision reads ∇φ, ∇²φ and the
 # stress two rows away, the streaming one more, and the velocity update
 # after it ∇φ of the streamed φ two more (pallas_fakhari.py:63)
@@ -97,35 +102,36 @@ def run_fused(h, g, u, p: FakhariParams, n_steps: int):
 
 def _launch(h, g, u, p: FakhariParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(h, g, u)``,
-    ping-ponging two new sets of buffers; counts each in ``HALO_LAUNCHES``
-    or ``LAUNCHES``."""
-    global LAUNCHES, HALO_LAUNCHES
+    ping-ponging two new sets of buffers; counts them (``.halo`` for the
+    halo route)."""
     from . import _build
 
-    lib = _build.load()
-    step = lib.fakhari_step_f32 if h.dtype == torch.float32 else lib.fakhari_step_f64
-    consts = kernel_constants(p)
-    _, ny, nx = h.shape
-    bufs = tuple(tuple(torch.empty_like(t) for t in (h, g, u)) for _ in range(2))
-    phi = torch.empty((ny, nx), dtype=h.dtype, device=h.device)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        lib = _build.load()
+        step = (lib.fakhari_step_f32 if h.dtype == torch.float32
+                else lib.fakhari_step_f64)
+        consts = kernel_constants(p)
+        _, ny, nx = h.shape
+        bufs = tuple(tuple(torch.empty_like(t) for t in (h, g, u))
+                     for _ in range(2))
+        phi = torch.empty((ny, nx), dtype=h.dtype, device=h.device)
     src = (h, g, u)
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            # after the first step, phi already holds Σh of src
-            err = step(*(t.data_ptr() for t in src + dst), phi.data_ptr(),
-                       ny, nx, int(i > 0), ctypes.addressof(consts), stream)
-            if err != 0:
-                raise RuntimeError("fakhari_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            if halo_route:
-                HALO_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
-            src = dst
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(h.device):
+            stream = torch.cuda.current_stream(h.device).cuda_stream
+            for i in range(n_steps):
+                dst = bufs[i % 2]
+                # after the first step, phi already holds Σh of src
+                err = step(*(t.data_ptr() for t in src + dst), phi.data_ptr(),
+                           ny, nx, int(i > 0), ctypes.addressof(consts), stream)
+                if err != 0:
+                    raise RuntimeError("fakhari_step launch failed: "
+                                       + lib.sc_error_string(err).decode())
+                src = dst
+    count_launches(FAMILY, n_steps,
+                   n_steps * LAUNCHES_PER_STEP + LAUNCHES_PER_CALL, halo_route)
     return src
 
 

@@ -13,9 +13,11 @@ On a CPU tensor, and only there, they run the plain PyTorch version
 (:func:`..models.hcz.run` with ``three_d=True``, and
 :func:`step_halo_plain_3d`).
 
-``LAUNCHES`` counts kernel steps launched by :func:`run_fused_3d` in this
-process (one per step, of ``LAUNCHES_PER_STEP`` launches), and
-``HALO_LAUNCHES`` those launched by :func:`step_fused_halo_3d`.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.hcz3d_step``,
+``kernel.launches.hcz3d_step``, ``LAUNCHES_PER_STEP`` a step; ``.halo``
+after them for :func:`step_fused_halo_3d`) and records the
+``kernel.prepare`` and ``kernel.enqueue`` spans.
 """
 from __future__ import annotations
 
@@ -25,11 +27,11 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
+from ..utils.profiling import count_launches, span
 from . import _grid, _halo
 from .hcz_fused import check_state, kernel_constants
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "hcz3d_step"
 # z-planes of validity one step consumes.  f needs 3: u reads ∇(∇²φ), two
 # planes of φ away, and the pull streaming one more.  g needs one more: its
 # forcing reads E = ∇(P − ρ/3), and P one plane away reads that u.  So
@@ -73,34 +75,33 @@ def run_fused_3d(f, g, p: HCZParams, n_steps: int):
 
 def _launch(f, g, p: HCZParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
-    which ping-pongs two new pairs of buffers; counts them in
-    ``HALO_LAUNCHES`` or ``LAUNCHES``."""
-    global LAUNCHES, HALO_LAUNCHES
+    which ping-pongs two new pairs of buffers; counts them (``.halo`` for
+    the halo route)."""
     from . import _build
 
-    _, nz, ny, nx = f.shape
-    _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
-    lib = _build.load()
-    run = lib.hcz3d_step_f32 if f.dtype == torch.float32 else lib.hcz3d_step_f64
-    consts = kernel_constants(p)
-    a = (torch.empty_like(f), torch.empty_like(g))
-    b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
-    b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
-    phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
-                  a[1].data_ptr(), *b_ptrs, phi.data_ptr(), nz, ny, nx,
-                  n_steps, ctypes.addressof(consts), stream)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        _, nz, ny, nx = f.shape
+        _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
+        lib = _build.load()
+        run = (lib.hcz3d_step_f32 if f.dtype == torch.float32
+               else lib.hcz3d_step_f64)
+        consts = kernel_constants(p)
+        a = (torch.empty_like(f), torch.empty_like(g))
+        b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
+        b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
+        phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                      a[1].data_ptr(), *b_ptrs, phi.data_ptr(), nz, ny, nx,
+                      n_steps, ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("hcz3d_step launch failed: "
                            + lib.sc_error_string(err).decode())
-    if halo_route:
-        HALO_LAUNCHES += n_steps
-    else:
-        LAUNCHES += n_steps
+    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
     return a if n_steps % 2 else b
 
 

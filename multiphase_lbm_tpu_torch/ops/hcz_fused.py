@@ -11,10 +11,11 @@ plain PyTorch version (:func:`..models.hcz.run`, and
 :func:`step_halo_plain`), which is what the CPU tests exercise.  Any row
 count works: the kernel needs none of the Pallas path's 8-row padding.
 
-``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one launch per step), and ``HALO_LAUNCHES`` those launched by
-:func:`step_fused_halo`, so a run can show that its main path went through
-the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.hcz_step``,
+``kernel.launches.hcz_step``; ``.halo`` after them for
+:func:`step_fused_halo`), so a run can show that its main path went through
+the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
 """
 from __future__ import annotations
 
@@ -24,10 +25,12 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
+from ..utils.profiling import count_launches, span
 from . import _grid, _halo
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "hcz_step"
+# kernel launches a step
+LAUNCHES_PER_STEP = 1
 # rows of validity one step consumes: ∇(∇²φ) reads two rows away and the
 # pull streaming one row more (pallas_hcz.py:39)
 REACH = 3
@@ -113,33 +116,31 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
 
 def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
-    which ping-pongs two new pairs of buffers; counts them in
-    ``HALO_LAUNCHES`` or ``LAUNCHES``."""
-    global LAUNCHES, HALO_LAUNCHES
+    which ping-pongs two new pairs of buffers; counts them (``.halo`` for
+    the halo route)."""
     from . import _build
 
-    _, ny, nx = f.shape
-    _grid.launch_geometry(ny, nx, TILE)
-    lib = _build.load()
-    run = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
-    consts = kernel_constants(p)
-    a = (torch.empty_like(f), torch.empty_like(g))
-    b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
-    b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
-                  a[1].data_ptr(), *b_ptrs, fluid_f32.data_ptr(), ny, nx,
-                  n_steps, ctypes.addressof(consts), stream)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        _, ny, nx = f.shape
+        _grid.launch_geometry(ny, nx, TILE)
+        lib = _build.load()
+        run = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
+        consts = kernel_constants(p)
+        a = (torch.empty_like(f), torch.empty_like(g))
+        b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
+        b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                      a[1].data_ptr(), *b_ptrs, fluid_f32.data_ptr(), ny, nx,
+                      n_steps, ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("hcz_step launch failed: "
                            + lib.sc_error_string(err).decode())
-    if halo_route:
-        HALO_LAUNCHES += n_steps
-    else:
-        LAUNCHES += n_steps
+    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
     return a if n_steps % 2 else b
 
 

@@ -19,8 +19,11 @@ the Pallas ``unpack_state`` does.  A float32 state straight from
 so its first step can differ from the plain path where F ≈ 1; after one
 step the two agree.
 
-``LAUNCHES`` counts kernel steps launched by this process (one per step), so
-a run can show that its main path went through the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.pulsatile_step``,
+``kernel.launches.pulsatile_step``), so a run can show that its main path
+went through the kernel, and records the ``kernel.prepare`` and
+``kernel.enqueue`` spans, and the ``wait`` of its counters' read.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ import torch
 
 from ..models import pulsatile as pm
 from ..models.pulsatile import PulsatileParams, PulsatileState
+from ..utils.profiling import count_launches, span, to_host
 
-LAUNCHES = 0
+FAMILY = "pulsatile_step"
 # kernel launches a step: the Bouzidi links of each wall, the collide-and-
 # stream tile, the geometry tail and the reseed scatter
 LAUNCHES_PER_STEP = 5
@@ -143,7 +147,6 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
     order-dependent reseed steps (filled densely instead of sequentially)
     and ``diag[1]`` the reseeded cells.  The caller's tensors are never
     written."""
-    global LAUNCHES
     check_params(p)
     check_state(state, p)
     if n_steps < 0:
@@ -157,37 +160,39 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
 
     from . import _build
 
-    lib = _build.load()
-    dtype = state.g_coll.dtype
-    run = (lib.pulsatile_run_f32 if dtype == torch.float32
-           else lib.pulsatile_run_f64)
-    consts = kernel_constants(p)
-    ny, nx = p.ny, p.nx
-    src = (state.g_coll, state.g_stream,
-           torch.stack([state.P, state.Ux, state.Uy]),
-           torch.stack([state.yr1, state.yr2]))
-    bufs = [tuple(torch.empty_like(t) for t in src) for _ in range(2)]
-    cap = 4 * nx + 256          # fresh cells a step can hold (≤ 2 per column)
-    ints = dict(dtype=torch.int32, device=device)
-    bz_idx = torch.empty(12 * nx, **ints)     # six slots a column and wall
-    bz_val = torch.empty(12 * nx, dtype=dtype, device=device)
-    rs_idx = torch.empty(cap, **ints)
-    rs_val = torch.empty(9 * cap, dtype=dtype, device=device)
-    ctr = torch.zeros(8, **ints)
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = run(*(t.data_ptr() for t in src),
-                  *(t.data_ptr() for b in bufs for t in b),
-                  bz_idx.data_ptr(), bz_val.data_ptr(), rs_idx.data_ptr(),
-                  rs_val.data_ptr(), ctr.data_ptr(), ny, nx, cap, n_steps,
-                  int(t0), ctypes.addressof(consts), stream)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        lib = _build.load()
+        dtype = state.g_coll.dtype
+        run = (lib.pulsatile_run_f32 if dtype == torch.float32
+               else lib.pulsatile_run_f64)
+        consts = kernel_constants(p)
+        ny, nx = p.ny, p.nx
+        src = (state.g_coll, state.g_stream,
+               torch.stack([state.P, state.Ux, state.Uy]),
+               torch.stack([state.yr1, state.yr2]))
+        bufs = [tuple(torch.empty_like(t) for t in src) for _ in range(2)]
+        cap = 4 * nx + 256      # fresh cells a step can hold (≤ 2 per column)
+        ints = dict(dtype=torch.int32, device=device)
+        bz_idx = torch.empty(12 * nx, **ints)     # six slots a column and wall
+        bz_val = torch.empty(12 * nx, dtype=dtype, device=device)
+        rs_idx = torch.empty(cap, **ints)
+        rs_val = torch.empty(9 * cap, dtype=dtype, device=device)
+        ctr = torch.zeros(8, **ints)
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = run(*(t.data_ptr() for t in src),
+                      *(t.data_ptr() for b in bufs for t in b),
+                      bz_idx.data_ptr(), bz_val.data_ptr(), rs_idx.data_ptr(),
+                      rs_val.data_ptr(), ctr.data_ptr(), ny, nx, cap, n_steps,
+                      int(t0), ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("pulsatile_run launch failed: "
                            + lib.sc_error_string(err).decode())
-    LAUNCHES += n_steps
-    counts = ctr[:3].cpu().to(torch.int64)
+    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP)
+    counts = to_host(ctr[:3]).to(torch.int64)
     if counts[2]:
         raise RuntimeError(f"{int(counts[2])} steps had more than {cap} "
                            "fresh cells, the kernel's list")

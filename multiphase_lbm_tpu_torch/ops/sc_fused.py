@@ -13,10 +13,11 @@ kernel takes both ψ forms of the model (``psi_mode`` ``"yuan"`` and
 ``"const_g"``) and the per-node body force ``gx_u``/``gy_u``, which the
 Pallas kernel refuses.
 
-``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one launch per step), and ``HALO_LAUNCHES`` those launched by
-:func:`step_fused_halo`, so a run can show that its main path went through
-the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.sc_step``,
+``kernel.launches.sc_step``; ``.halo`` after them for
+:func:`step_fused_halo`), so a run can show that its main path went through
+the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from ..core import eos
 from ..core.collision import MRT_M_I, MRT_M_I_INV
 from ..models import shan_chen as sc
 from ..models.shan_chen import SCParams
+from ..utils.profiling import count_launches, span
 from . import _grid, _halo
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "sc_step"
+# kernel launches a step
+LAUNCHES_PER_STEP = 1
 # rows of validity one step consumes: the force reads ψ one row away and
 # the pull streaming one row more
 REACH = 2
@@ -143,33 +146,31 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
 def _launch(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool,
             halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensor ``f`` in one C call,
-    which ping-pongs two new buffers; counts them in ``HALO_LAUNCHES`` or
-    ``LAUNCHES``."""
-    global LAUNCHES, HALO_LAUNCHES
+    which ping-pongs two new buffers; counts them (``.halo`` for the halo
+    route)."""
     from . import _build
 
-    _, ny, nx = f.shape
-    _grid.launch_geometry(ny, nx, TILE)
-    lib = _build.load()
-    run = lib.sc_step_f32 if f.dtype == torch.float32 else lib.sc_step_f64
-    consts = kernel_constants(p)
-    a = torch.empty_like(f)
-    b = torch.empty_like(f) if n_steps > 1 else None
-    mask_ptr = None if periodic else fluid_f32.data_ptr()
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = run(f.data_ptr(), a.data_ptr(), b.data_ptr() if b is not None
-                  else None, mask_ptr, ny, nx, int(periodic), n_steps,
-                  ctypes.addressof(consts), stream)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        _, ny, nx = f.shape
+        _grid.launch_geometry(ny, nx, TILE)
+        lib = _build.load()
+        run = lib.sc_step_f32 if f.dtype == torch.float32 else lib.sc_step_f64
+        consts = kernel_constants(p)
+        a = torch.empty_like(f)
+        b = torch.empty_like(f) if n_steps > 1 else None
+        mask_ptr = None if periodic else fluid_f32.data_ptr()
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            err = run(f.data_ptr(), a.data_ptr(), b.data_ptr() if b is not None
+                      else None, mask_ptr, ny, nx, int(periodic), n_steps,
+                      ctypes.addressof(consts), stream)
     if err != 0:
         raise RuntimeError("sc_step launch failed: "
                            + lib.sc_error_string(err).decode())
-    if halo_route:
-        HALO_LAUNCHES += n_steps
-    else:
-        LAUNCHES += n_steps
+    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
     return a if n_steps % 2 else b
 
 

@@ -15,10 +15,11 @@ exercise.  The lattice keeps the model's ``(9, ny, nx)`` layout and its
 input's dtype (the Pallas path transposes, pads and casts to float32), so
 the halo entry cuts x, the last axis, and keeps the walled y whole.
 
-``LAUNCHES`` counts kernel steps launched by :func:`run_fused` in this
-process (one per step), and ``HALO_LAUNCHES`` those launched by
-:func:`step_fused_halo`, so a run can show that its main path went through
-the kernel.
+Each call counts its steps and launches in the recorder of
+:mod:`..utils.profiling` (``kernel.steps.scrt_step``,
+``kernel.launches.scrt_step``; ``.halo`` after them for
+:func:`step_fused_halo`), so a run can show that its main path went through
+the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
 """
 from __future__ import annotations
 
@@ -28,10 +29,12 @@ import torch
 
 from ..models import shan_chen_rt as rt
 from ..models.shan_chen_rt import SCRTParams
+from ..utils.profiling import count_launches, span
 from . import _halo
 
-LAUNCHES = 0
-HALO_LAUNCHES = 0
+FAMILY = "scrt_step"
+# kernel launches a step: the ψ pass and the collide-and-stream pass
+LAUNCHES_PER_STEP = 2
 # columns of validity one step consumes: the force reads ψ one column away
 # and the pull streaming one column more
 REACH = 2
@@ -90,33 +93,32 @@ def run_fused(f, p: SCRTParams, n_steps: int):
 
 def _launch(f, p: SCRTParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensor ``f``, ping-ponging two
-    new buffers; counts each in ``HALO_LAUNCHES`` or ``LAUNCHES``."""
-    global LAUNCHES, HALO_LAUNCHES
+    new buffers; counts them (``.halo`` for the halo route)."""
     from . import _build
 
-    lib = _build.load()
-    step = lib.scrt_step_f32 if f.dtype == torch.float32 else lib.scrt_step_f64
-    consts = kernel_constants(p)
-    _, ny, nx = f.shape
-    bufs = (torch.empty_like(f), torch.empty_like(f))
-    psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
+    with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        lib = _build.load()
+        step = (lib.scrt_step_f32 if f.dtype == torch.float32
+                else lib.scrt_step_f64)
+        consts = kernel_constants(p)
+        _, ny, nx = f.shape
+        bufs = (torch.empty_like(f), torch.empty_like(f))
+        psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
     src = f
-    # the library's runtime launches into the context current on this
-    # thread: make it the tensor's device
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            err = step(src.data_ptr(), dst.data_ptr(), psi.data_ptr(), ny, nx,
-                       ctypes.addressof(consts), stream)
-            if err != 0:
-                raise RuntimeError("scrt_step launch failed: "
-                                   + lib.sc_error_string(err).decode())
-            if halo_route:
-                HALO_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
-            src = dst
+    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
+        # the library's runtime launches into the context current on this
+        # thread: make it the tensor's device
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            for i in range(n_steps):
+                dst = bufs[i % 2]
+                err = step(src.data_ptr(), dst.data_ptr(), psi.data_ptr(), ny,
+                           nx, ctypes.addressof(consts), stream)
+                if err != 0:
+                    raise RuntimeError("scrt_step launch failed: "
+                                       + lib.sc_error_string(err).decode())
+                src = dst
+    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
     return src
 
 

@@ -138,28 +138,31 @@ def _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact, periodic):
     it = 0
     while it < steps:
         if drv.want_vtk(it):
-            # fields stay on the device: the dump stages their host copies
-            # without blocking the time loop
-            rho = sc.density(f)
-            pr = sc.node_pressure(f, p)
-            F = sc.sc_force(rho, fluid, p)
-            drv.write_vtk(it, nx, ny, spacing=dx,
-                          scalars=[("Density", rho * flm),
-                                   ("Pressure", pr * flm)],
-                          vectors=[("Force", F)])
+            with drv.dump(it):
+                # fields stay on the device: the dump stages their host
+                # copies without blocking the time loop
+                rho = sc.density(f)
+                pr = sc.node_pressure(f, p)
+                F = sc.sc_force(rho, fluid, p)
+                drv.write_vtk(it, nx, ny, spacing=dx,
+                              scalars=[("Density", rho * flm),
+                                       ("Pressure", pr * flm)],
+                              vectors=[("Force", F)])
         if drv.want_out(it):
-            e = float(sc.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
-            m = float(sc.total_mass(f, fluid))
-            drv.log_file("energy.dat").log(it * dt, e)
-            drv.log_file("mass.dat").log(it * dt, m)
-            if contact:
-                res = sc.contact_angle(sc.density(f).cpu().numpy(),
-                                       fluid.cpu().numpy(), p.rhol, p.rhog)
-                if res:
-                    drv.log_file("contact_angle.dat").log(*res)
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        f = sc_fused.run_fused(f, fluid_f32, p, chunk, periodic=periodic)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                e = drv.scalar(sc.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
+                m = drv.scalar(sc.total_mass(f, fluid))
+                drv.log_file("energy.dat").log(it * dt, e)
+                drv.log_file("mass.dat").log(it * dt, m)
+                if contact:
+                    res = sc.contact_angle(drv.numpy(sc.density(f)),
+                                           drv.numpy(fluid), p.rhol, p.rhog)
+                    if res:
+                        drv.log_file("contact_angle.dat").log(*res)
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            f = sc_fused.run_fused(f, fluid_f32, p, chunk, periodic=periodic)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, f)
     return f
@@ -183,17 +186,22 @@ def run_young_laplace2d(config, outdir, dtype=torch.float64, max_steps=None,
     # the reference's loop runs to it == steps inclusive, one step past it
     while it <= steps:
         if drv.want_vtk(it):
-            drv.write_vtk(it, N, N,
-                          scalars=[("phi", fk.phase_field(state)),
-                                   ("Pressure", fk.pressure(state))],
-                          vectors=[("velocity", state[2])],
-                          int_scalars=[("Flag", flag)])
+            with drv.dump(it):
+                drv.write_vtk(it, N, N,
+                              scalars=[("phi", fk.phase_field(state)),
+                                       ("Pressure", fk.pressure(state))],
+                              vectors=[("velocity", state[2])],
+                              int_scalars=[("Flag", flag)])
         if drv.want_out(it):
-            drv.log_file("energy.dat").log(it, float(fk.kinetic_energy(state)))
-            drv.log_file("mass.dat").log(it, float(fk.total_mass(state, p)))
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        state = fakhari_fused.run_fused(*state, p, chunk)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                drv.log_file("energy.dat").log(
+                    it, drv.scalar(fk.kinetic_energy(state)))
+                drv.log_file("mass.dat").log(
+                    it, drv.scalar(fk.total_mass(state, p)))
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            state = fakhari_fused.run_fused(*state, p, chunk)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, state[0])
     return state
@@ -207,9 +215,9 @@ def _hcz_params(cfg, omega, kappa, **extra):
         b=_num(cfg, "b", 4.0), kappa=_num(cfg, "kappa", kappa), **extra)
 
 
-def _flag(fluid):
+def _flag(drv, fluid):
     """The VTK ``Flag`` field: 1 at solid cells (static, tiny)."""
-    return (~fluid).cpu().numpy().astype(int)
+    return (~drv.numpy(fluid)).astype(int)
 
 
 # ─── HCZ Rayleigh-Taylor (reference PF rayleighTaylor2D.h :862-988) ────────
@@ -228,34 +236,38 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=torch.float64, max_steps=None,
     drv = Driver(outdir, N * ny, out_freq=_int(cfg, "out_freq", 3200),
                  vtk_freq=_int(cfg, "vtk_freq", 3200))
     fluid_f32 = fluid.to(torch.float32)
-    flag = _flag(fluid)
+    flag = _flag(drv, fluid)
     it = 0
     prev_sb = None
     while it < steps:
         if drv.want_vtk(it):
-            phi = hcz.order_parameter(state[0])
-            drv.write_vtk(it, N, ny, spacing=1.0 / N,
-                          scalars=[("phi", phi), ("density", hcz.rho_of_phi(phi, p))],
-                          int_scalars=[("Flag", flag)])
+            with drv.dump(it):
+                phi = hcz.order_parameter(state[0])
+                drv.write_vtk(it, N, ny, spacing=1.0 / N,
+                              scalars=[("phi", phi),
+                                       ("density", hcz.rho_of_phi(phi, p))],
+                              int_scalars=[("Flag", flag)])
         if drv.want_out(it):
-            e = float(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
-            drv.log_file("energy.dat").log(it * dt, e)
-            s, b = hcz.interface_heights(
-                hcz.order_parameter(state[0]).cpu().numpy(), p)
-            drv.log_file("spike_bubble_position.dat").log(
-                it * dt, s * dx, b * dx)
-            # finite-difference interface velocities over the output cadence
-            # (the series the reference's validation notebook derives from
-            # the positions)
-            if prev_sb is not None:
-                t_prev, s_prev, b_prev = prev_sb
-                dti = it * dt - t_prev
-                drv.log_file("spike_bubble_velocity.dat").log(
-                    it * dt, (s * dx - s_prev) / dti, (b * dx - b_prev) / dti)
-            prev_sb = (it * dt, s * dx, b * dx)
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                e = drv.scalar(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+                drv.log_file("energy.dat").log(it * dt, e)
+                s, b = hcz.interface_heights(
+                    drv.numpy(hcz.order_parameter(state[0])), p)
+                drv.log_file("spike_bubble_position.dat").log(
+                    it * dt, s * dx, b * dx)
+                # finite-difference interface velocities over the output
+                # cadence (the series the reference's validation notebook
+                # derives from the positions)
+                if prev_sb is not None:
+                    t_prev, s_prev, b_prev = prev_sb
+                    dti = it * dt - t_prev
+                    drv.log_file("spike_bubble_velocity.dat").log(
+                        it * dt, (s * dx - s_prev) / dti, (b * dx - b_prev) / dti)
+                prev_sb = (it * dt, s * dx, b * dx)
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, state[0])
     return state
@@ -278,23 +290,28 @@ def run_two_layered_pf(config, outdir, dtype=torch.float64, max_steps=None,
     drv = Driver(outdir, N * N, out_freq=_int(cfg, "out_freq", 500),
                  vtk_freq=_int(cfg, "vtk_freq", 1000))
     fluid_f32 = fluid.to(torch.float32)
-    flag = _flag(fluid)
+    flag = _flag(drv, fluid)
     it = 0
     while it < steps:
         if drv.want_vtk(it):
-            phi = hcz.order_parameter(state[0])
-            drv.write_vtk(it, N, N, spacing=dx,
-                          scalars=[("phi", phi), ("density", hcz.rho_of_phi(phi, p))],
-                          int_scalars=[("Flag", flag)])
+            with drv.dump(it):
+                phi = hcz.order_parameter(state[0])
+                drv.write_vtk(it, N, N, spacing=dx,
+                              scalars=[("phi", phi),
+                                       ("density", hcz.rho_of_phi(phi, p))],
+                              int_scalars=[("Flag", flag)])
         if drv.want_out(it):
-            e = float(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
-            drv.log_file("energy.dat").log(it * dt, e)
-            rho = hcz.rho_of_phi(hcz.order_parameter(state[0]), p)
-            drv.log_file("density_probe.dat").log(
-                it * dt, float(rho[N // 2, N // 2]), float(rho[2, N // 2]))
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                e = drv.scalar(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+                drv.log_file("energy.dat").log(it * dt, e)
+                rho = hcz.rho_of_phi(hcz.order_parameter(state[0]), p)
+                drv.log_file("density_probe.dat").log(
+                    it * dt, drv.scalar(rho[N // 2, N // 2]),
+                    drv.scalar(rho[2, N // 2]))
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            state = hcz_fused.run_fused(*state, fluid_f32, p, chunk)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, state[0])
     return state
@@ -316,15 +333,18 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
     it = 0
     while it < steps:
         if drv.want_vtk(it):
-            drv.write_vtk(it, N, N, N, spacing=1.0 / N,
-                          scalars=[("phi", hcz.order_parameter(state[0]))])
+            with drv.dump(it):
+                drv.write_vtk(it, N, N, N, spacing=1.0 / N,
+                              scalars=[("phi", hcz.order_parameter(state[0]))])
         if drv.want_out(it):
-            e = float(hcz.kinetic_energy(state, fluid, p, hcz.D3Q19,
-                                         three_d=True))
-            drv.log_file("energy.dat").log(it * dt, e)
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        state = hcz3d_fused.run_fused_3d(*state, p, chunk)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                e = drv.scalar(hcz.kinetic_energy(state, fluid, p, hcz.D3Q19,
+                                                  three_d=True))
+                drv.log_file("energy.dat").log(it * dt, e)
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            state = hcz3d_fused.run_fused_3d(*state, p, chunk)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, state[0])
     return state
@@ -346,25 +366,29 @@ def run_rayleigh_taylor_sc(config, outdir, dtype=torch.float64, max_steps=None,
     steps = max_steps or int(_num(cfg, "max_t", 50.01) / dt)
     drv = Driver(outdir, nx * ny, out_freq=_int(cfg, "out_freq", 100),
                  vtk_freq=_int(cfg, "vtk_freq", 100))
-    flag = _flag(fluid)
-    fluid_host = fluid.cpu().numpy()
+    flag = _flag(drv, fluid)
+    fluid_host = drv.numpy(fluid)
     it = 0
     while it < steps:
         if drv.want_vtk(it):
-            drv.write_vtk(it, nx, ny, spacing=dx,
-                          scalars=[("Density", rt.density(f))],
-                          int_scalars=[("Flag", flag)])
+            with drv.dump(it):
+                drv.write_vtk(it, nx, ny, spacing=dx,
+                              scalars=[("Density", rt.density(f))],
+                              int_scalars=[("Flag", flag)])
         if drv.want_out(it):
-            e = float(rt.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
-            drv.log_file("energy.dat").log(it * dt, e)
-            rho = rt.density(f)
-            drv.log_file("mass.dat").log(it * dt, float((rho * fluid).sum()))
-            s, bub = rt.interface_height(rho.cpu().numpy(), fluid_host, p)
-            drv.log_file("spike_bubble_position.dat").log(
-                it * dt, s * dx, bub * dx)
-        chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        f = scrt_fused.run_fused(f, p, chunk)
-        drv.clock.tick(chunk)
+            with drv.record(it):
+                e = drv.scalar(rt.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
+                drv.log_file("energy.dat").log(it * dt, e)
+                rho = rt.density(f)
+                drv.log_file("mass.dat").log(
+                    it * dt, drv.scalar((rho * fluid).sum()))
+                s, bub = rt.interface_height(drv.numpy(rho), fluid_host, p)
+                drv.log_file("spike_bubble_position.dat").log(
+                    it * dt, s * dx, bub * dx)
+        with drv.chunk(it):
+            chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
+            f = scrt_fused.run_fused(f, p, chunk)
+            drv.clock.tick(chunk)
         it += chunk
     _finish(drv, f)
     return f
@@ -392,17 +416,19 @@ def run_pulsatile(outdir, N=64, dtype=torch.float64, max_steps=None,
     dumps = sorted(set(range(0, tf + 1, step_freq)) | {tf})
     it = 0                                   # next step index to run
     for dump_t in dumps:
-        chunk = dump_t - it + 1
-        if momentum_quirk:
-            state, _ = pulsatile_fused.run_fused_full(state, it, p, chunk)
-        else:
-            state = pb.run(state, it, p, chunk)
-        drv.clock.tick(chunk)
+        with drv.chunk(it):
+            chunk = dump_t - it + 1
+            if momentum_quirk:
+                state, _ = pulsatile_fused.run_fused_full(state, it, p, chunk)
+            else:
+                state = pb.run(state, it, p, chunk)
+            drv.clock.tick(chunk)
         it = dump_t + 1
-        drv.write_vtk(dump_t, p.nx, p.ny, spacing=1.0 / p.nx,
-                      scalars=[("P", state.P), ("Ux", state.Ux),
-                               ("Uy", state.Uy)],
-                      int_scalars=[("Flag", (~state.fluid).to(torch.int32))])
+        with drv.dump(dump_t):
+            drv.write_vtk(dump_t, p.nx, p.ny, spacing=1.0 / p.nx,
+                          scalars=[("P", state.P), ("Ux", state.Ux),
+                                   ("Uy", state.Uy)],
+                          int_scalars=[("Flag", (~state.fluid).to(torch.int32))])
     _finish(drv, state.g_stream)
     return state
 
@@ -500,7 +526,8 @@ def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
     drv = Driver(outdir, nx * ny, out_freq=1000, vtk_freq=0)
 
     def log(done, e, dev):
-        drv.log_file("energy.dat").log(done, e, dev)
+        with drv.record(done):
+            drv.log_file("energy.dat").log(done, e, dev)
 
     if restart is not None:
         # a restarted run trusts the converged field and goes straight to
@@ -521,26 +548,28 @@ def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
         it += 1
         left = scalar_steps - 1
         while left > 0:
-            chunk = min(left, 500)
-            t_prev = it * CB_DELTA_T_PH
-            st = runner(st, p, chunk, konv=True)
+            with drv.chunk(it):
+                chunk = min(left, 500)
+                t_prev = it * CB_DELTA_T_PH
+                st = runner(st, p, chunk, konv=True)
             it += chunk
             left -= chunk
             t_now = it * CB_DELTA_T_PH
             for t_mark in CB_MIDDLELINE_TIMES:
                 if t_prev < t_mark <= t_now:
-                    cb.middleline(outdir, st, tab, p, t_ph=t_mark)
+                    with drv.record(it):
+                        cb.middleline(outdir, st, tab, p, t_ph=t_mark)
     it_total = it
     cb.middleline(outdir, st, tab, p, t_ph=it_total * CB_DELTA_T_PH)
 
     drv.clock.tick(it_total)
     drv.log_file("thermal-energy.dat").log(
-        it_total, float(cb.thermal_energy(st, tab, p)))
+        it_total, drv.scalar(cb.thermal_energy(st, tab, p)))
     cb.save_profiles(outdir, st, tab, p)
     cb.conservation_audit(outdir, st, tab, p)
     _combustion_vtk(drv, st, p, flags, it_total)
     fin, fout = cb.mass_flux_audit(st, tab, p)
-    drv.log_file("conservation.dat").log(float(fin), float(fout))
+    drv.log_file("conservation.dat").log(drv.scalar(fin), drv.scalar(fout))
     _finish(drv, st.f)
     return st
 

@@ -11,6 +11,7 @@ import torch
 
 from ..io.loggers import DatLogger, MlupsClock
 from ..io.vtk import VtkWriter, sol_filename
+from ..utils.profiling import carry, count, span, to_host, tracing
 
 
 class _HostCopy:
@@ -18,11 +19,14 @@ class _HostCopy:
     memory with ``non_blocking=True`` on the current stream and an event is
     recorded after the copy; :meth:`numpy` waits on that event.  Later work
     on the stream cannot overwrite the source before the copy has run,
-    because the copy is ordered before it."""
+    because the copy is ordered before it.  A tensor's bytes count in
+    ``d2h_bytes`` on either device, as :func:`..utils.profiling.to_host`
+    counts them."""
 
     def __init__(self, data):
         self._event = None
         if isinstance(data, torch.Tensor):
+            count("d2h_bytes", data.numel() * data.element_size())
             if data.is_cuda:
                 host = torch.empty(data.shape, dtype=data.dtype,
                                    pin_memory=True)
@@ -56,7 +60,15 @@ class Driver:
     MLUPS line prints.  The model functions return new tensors and never
     write into their inputs, so a snapshot handed to the worker cannot be
     changed by later steps.  Output is byte-identical to synchronous
-    writes (``async_io=False``)."""
+    writes (``async_io=False``).
+
+    While ``torch.profiler`` records, a ``driver`` span runs from the
+    construction until :meth:`finish` has drained the dumps, the loops of
+    ``runners/apps.py`` mark each iteration with the spans of
+    :meth:`record`, :meth:`dump` and :meth:`chunk` inside it, their
+    blocking reads of device data with :meth:`scalar` and :meth:`numpy`
+    (``wait``), and the writer thread records ``vtk.write`` for each dump
+    it formats and writes."""
 
     def __init__(self, outdir, nelem, out_freq=0, vtk_freq=0,
                  async_io=True):
@@ -70,6 +82,10 @@ class Driver:
         self._pool = None
         self._writes = []
         self._io_err = None
+        # the driver call's span, from here until finish() has drained the
+        # dumps: the loop's own code between its record, dump and chunk spans
+        self._span = span("driver")
+        self._span.__enter__()
 
     def log_file(self, name) -> DatLogger:
         if name not in self._logs:
@@ -81,6 +97,31 @@ class Driver:
 
     def want_out(self, it) -> bool:
         return self.out_freq != 0 and it % self.out_freq == 0
+
+    # the loop's spans: record around the diagnostics of a record, dump
+    # around a dump (its field kernels included), chunk around the rest of
+    # an iteration (next_chunk, the stepping entry, clock.tick)
+    @staticmethod
+    def record(it):
+        return span("record", it=it)
+
+    @staticmethod
+    def dump(it):
+        return span("dump", it=it)
+
+    @staticmethod
+    def chunk(it):
+        return span("chunk", it=it)
+
+    @staticmethod
+    def scalar(t) -> float:
+        """``float(t)`` of a one-element tensor, read as a ``wait``."""
+        return float(to_host(t))
+
+    @staticmethod
+    def numpy(t) -> np.ndarray:
+        """``t`` as a host numpy array, read as a ``wait``."""
+        return to_host(t).numpy()
 
     def write_vtk(self, it, nx, ny, nz=1, spacing=1.0, scalars=(), vectors=(),
                   int_scalars=()):
@@ -97,29 +138,32 @@ class Driver:
                                             thread_name_prefix="vtk-io")
         # enforce the in-flight bound BEFORE staging this dump's copies, so
         # at most 2 snapshots are ever held (executing + queued)
-        while len(self._writes) >= 2:
-            try:
-                self._writes.pop(0).result()
-            except Exception as e:
-                # defer to drain()/finish(): raising from inside the time
-                # loop would leave the remaining queued future and the pool
-                # undrained
-                if self._io_err is None:
-                    self._io_err = e
+        with span("vtk.inflight"):
+            while len(self._writes) >= 2:
+                try:
+                    self._writes.pop(0).result()
+                except Exception as e:
+                    # defer to drain()/finish(): raising from inside the
+                    # time loop would leave the remaining queued future and
+                    # the pool undrained
+                    if self._io_err is None:
+                        self._io_err = e
+        # the writer thread records its spans when this thread is traced
         self._writes.append(self._pool.submit(
             self._do_write, it, nx, ny, nz, spacing, stage(scalars),
-            stage(vectors), stage(int_scalars)))
+            stage(vectors), stage(int_scalars), tracing()))
 
     def _do_write(self, it, nx, ny, nz, spacing, scalars, vectors,
-                  int_scalars):
-        w = VtkWriter(nx, ny, nz, spacing=spacing, iteration=it)
-        for name, data in scalars:
-            w.scalar(name, data.numpy())
-        for name, data in vectors:
-            w.vector(name, data.numpy())
-        for name, data in int_scalars:
-            w.scalar(name, data.numpy(), as_int=True)
-        w.write(self.outdir / sol_filename(it))
+                  int_scalars, traced=False):
+        with carry(traced), span("vtk.write", it=it):
+            w = VtkWriter(nx, ny, nz, spacing=spacing, iteration=it)
+            for name, data in scalars:
+                w.scalar(name, data.numpy())
+            for name, data in vectors:
+                w.vector(name, data.numpy())
+            for name, data in int_scalars:
+                w.scalar(name, data.numpy(), as_int=True)
+            w.write(self.outdir / sol_filename(it))
 
     def drain(self):
         """Block until ALL queued dumps are on disk; then re-raise the
@@ -146,6 +190,7 @@ class Driver:
                 self._pool = None
             for lg in self._logs.values():
                 lg.close()
+            self._span.__exit__(None, None, None)
         print(self.clock.report())
         return self.clock.mlups
 

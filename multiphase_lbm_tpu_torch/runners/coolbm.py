@@ -5,6 +5,7 @@
         [--device cuda|cpu] [--N 64] [--quirk-free] [--scheme li2014]
         [--topology inflow_outflow] [--u-lid U] [--dpdx F] [--restart INI_F]
         [--bench] [--scalar-steps 5000] [--nx 420] [--ny 80]
+        [--profile trace.json]
 
 Problems, every one of the JAX CLI: laplace2D_sc, contactAngle2D,
 twoLayeredFlow2D_sc, RayleighTaylor2D_sc, Young_Laplace2D, rayleighTaylor2D,
@@ -18,15 +19,26 @@ is no ``--fused`` flag: on the card the kernel is the path).  The plain
 PyTorch path runs only when ``--device cpu`` asks for it: without a visible
 card and without that flag the CLI refuses to start, so a missing card is
 never hidden behind a CPU run.
+
+``--profile PATH`` runs the problem under ``torch.profiler`` on every
+thread and writes its Chrome trace to PATH: the kernels, the program's
+``mlbm.*`` spans of the driver and the VTK writer threads on one timeline,
+and the counters (``utils/profiling.profile_run``).  It prints the device's
+idle share between the loop's first kernel launch and its last chunk, the
+idle time by the innermost driver span at each idle gap's midpoint, and the
+longest gaps.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import json
 import sys
 from pathlib import Path
 
 import torch
 
+from ..utils import profiling
 from . import apps
 
 PROBLEMS = {
@@ -91,6 +103,10 @@ def main(argv=None):
                     help="combustion lattice width (reference N_X = 420)")
     ap.add_argument("--ny", type=int, default=80,
                     help="combustion lattice height (reference N_Y = 80)")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "(kernels, every thread's mlbm.* spans, counters) "
+                         "to PATH and print the device's idle time by span")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -100,27 +116,52 @@ def main(argv=None):
         return 2
     dtype = torch.float32 if args.f32 else torch.float64
     if args.problem == "PulsatileBloodFlow2D":
-        apps.run_pulsatile(args.outdir, N=args.N, dtype=dtype,
-                           max_steps=args.steps,
-                           momentum_quirk=not args.quirk_free, device=device)
-        return 0
-    if args.problem == "combustion":
-        apps.run_combustion(args.outdir, nx=args.nx, ny=args.ny, dtype=dtype,
-                            flow_steps=args.steps or 20000,
-                            scalar_steps=args.scalar_steps,
-                            conj_scheme=args.scheme, restart=args.restart,
-                            benchmark=args.bench, topology=args.topology,
-                            u_lid=args.u_lid, dpdx=args.dpdx, device=device)
-        return 0
-    fn, config_name = PROBLEMS[args.problem]
-    cfg = args.config
-    if cfg is None:
-        cand = CONFIG_DIR / config_name
-        if not cand.exists():
-            ap.error(f"--config required for {args.problem}")
-        cfg = str(cand)
-    fn(cfg, args.outdir, dtype=dtype, max_steps=args.steps, device=device)
+        run = functools.partial(
+            apps.run_pulsatile, args.outdir, N=args.N, dtype=dtype,
+            max_steps=args.steps, momentum_quirk=not args.quirk_free,
+            device=device)
+    elif args.problem == "combustion":
+        run = functools.partial(
+            apps.run_combustion, args.outdir, nx=args.nx, ny=args.ny,
+            dtype=dtype, flow_steps=args.steps or 20000,
+            scalar_steps=args.scalar_steps, conj_scheme=args.scheme,
+            restart=args.restart, benchmark=args.bench,
+            topology=args.topology, u_lid=args.u_lid, dpdx=args.dpdx,
+            device=device)
+    else:
+        fn, config_name = PROBLEMS[args.problem]
+        cfg = args.config
+        if cfg is None:
+            cand = CONFIG_DIR / config_name
+            if not cand.exists():
+                ap.error(f"--config required for {args.problem}")
+            cfg = str(cand)
+        run = functools.partial(fn, cfg, args.outdir, dtype=dtype,
+                                max_steps=args.steps, device=device)
+    if args.profile is None:
+        run()
+    else:
+        _profile(run, args.profile)
     return 0
+
+
+def _profile(run, path):
+    """``run()`` under :func:`..utils.profiling.profile_run`, then the
+    device's idle time by driver span on stdout."""
+    _, idle = profiling.profile_run(run, path)
+    print(f"profile: trace written to {path}")
+    if not idle:
+        print("profile: no driver loop or no device operation in the trace")
+        return
+    print(f"profile: device idle {100 * idle['idle_share']:.2f}% of "
+          f"{idle['window_s'] * 1e3:.3f} ms (first kernel.enqueue to the end "
+          f"of the last chunk); idle ms by driver span:")
+    for name, sec in idle["idle_s_by_span"].items():
+        print(f"profile:   {name} {sec * 1e3:.3f}")
+    print("profile: longest idle gaps (span, ms):")
+    for name, sec, _ in idle["longest"]:
+        print(f"profile:   {name} {sec * 1e3:.3f}")
+    print(f"profile: counters {json.dumps(profiling.counters())}")
 
 
 if __name__ == "__main__":

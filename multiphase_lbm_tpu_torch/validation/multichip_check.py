@@ -61,6 +61,7 @@ from ..models import shan_chen_rt as rt
 from ..ops import (_halo, combustion_fused, fakhari_fused, hcz3d_fused,
                    hcz_fused, sc_fused, scrt_fused)
 from ..parallel import sharding as sh
+from ..utils import profiling
 from ..utils.profiling import device_profile
 
 ATOL = 1e-6
@@ -613,14 +614,18 @@ def check_halo_entry(family, dtype, nsub, device="cuda", variant="konv"
     extended slab (:func:`halo_entry_case`, of ``variant``): ``max_abs_err``,
     ``ok``
     (finite, same shapes, within the family's tolerance), ``launched``,
-    the entry's ``HALO_LAUNCHES`` increase, and ``launched_main``, the
-    wrapper's ``LAUNCHES`` increase (0: the halo route counts apart)."""
+    the steps the entry counted (``kernel.steps.<family>.halo``), and
+    ``launched_main``, those the main route counted
+    (``kernel.steps.<family>``; 0: the halo route counts apart)."""
     mod, kernel, plain, args = halo_entry_case(family, dtype, nsub, device,
                                                variant)
-    before, before_main = mod.HALO_LAUNCHES, mod.LAUNCHES
+    halo_steps = f"kernel.steps.{mod.FAMILY}.halo"
+    main_steps = f"kernel.steps.{mod.FAMILY}"
+    before = profiling.counters()
     out = kernel(*args, nsub=nsub)
-    launched = mod.HALO_LAUNCHES - before
-    launched_main = mod.LAUNCHES - before_main
+    after = profiling.counters()
+    launched = after.get(halo_steps, 0) - before.get(halo_steps, 0)
+    launched_main = after.get(main_steps, 0) - before.get(main_steps, 0)
     tol = _tolerance(family, dtype)
     ref = plain(*args, nsub=nsub)
     if family == "combustion":

@@ -39,6 +39,7 @@ import torch
 from multiphase_lbm_tpu_torch import bench
 from multiphase_lbm_tpu_torch.models import combustion as cbm
 from multiphase_lbm_tpu_torch.ops import combustion_fused as cf
+from multiphase_lbm_tpu_torch.utils import profiling
 from multiphase_lbm_tpu_torch.validation import combustion_reference
 
 pytestmark = pytest.mark.gpu
@@ -107,10 +108,10 @@ def test_kernel_matches_plain(cuda_device, case, dtype):
     p = cbm.CombustionParams(**kw)
     st = warm(p, dtype, cuda_device)
     n = STEPS[dtype]
-    before = cf.LAUNCHES
+    before = profiling.counter("kernel.steps.combustion_step")
     out = cf.run_fused(st, p, n, **run_kw)
     torch.cuda.synchronize()
-    assert cf.LAUNCHES == before + n
+    assert profiling.counter("kernel.steps.combustion_step") == before + n
     ref = cbm.run(st, p, n, **run_kw)
     assert out.f.dtype == dtype
     errs, finite = max_errors(out, ref, p)

@@ -23,6 +23,7 @@ from multiphase_lbm_tpu_torch.core.lattice import D2Q9
 from multiphase_lbm_tpu_torch.models import fakhari as fk
 from multiphase_lbm_tpu_torch.ops import fakhari_fused
 from multiphase_lbm_tpu_torch.runners import coolbm
+from multiphase_lbm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -65,10 +66,10 @@ def _assert_close(out, ref, tol):
 def test_fakhari_kernel_matches_plain(cuda_device, case, dtype):
     p, st = _state(case, dtype, cuda_device)
     n = STEPS[dtype]
-    before = fakhari_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.fakhari_step")
     out = fakhari_fused.run_fused(*st, p, n)
     torch.cuda.synchronize()
-    assert fakhari_fused.LAUNCHES == before + n
+    assert profiling.counter("kernel.steps.fakhari_step") == before + n
     _assert_close(out, fk.run(st, p, n), TOL[dtype])
 
 
@@ -94,10 +95,10 @@ def test_kernel_rejects_unsupported_state(cuda_device):
 
 
 def test_cli_runs_through_the_kernel(cuda_device, tmp_path):
-    before = fakhari_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.fakhari_step")
     assert coolbm.main(["Young_Laplace2D", "--f32", "--steps", "100",
                         "--outdir", str(tmp_path)]) == 0
-    assert fakhari_fused.LAUNCHES > before
+    assert profiling.counter("kernel.steps.fakhari_step") > before
     assert (tmp_path / "sol_0000000.vtk").exists()
     assert (tmp_path / "mass.dat").exists()
 

@@ -29,6 +29,7 @@ import torch
 from multiphase_lbm_tpu_torch.models import hcz
 from multiphase_lbm_tpu_torch.ops import hcz3d_fused, hcz_fused
 from multiphase_lbm_tpu_torch.runners import coolbm
+from multiphase_lbm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -85,28 +86,32 @@ def _assert_close(out, ref, tol):
 def test_hcz_kernel_matches_plain(cuda_device, case, dtype):
     p, st, fluid = _state_2d(case, dtype, cuda_device)
     n = STEPS[dtype]
-    before = hcz_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.hcz_step")
     out = hcz_fused.run_fused(*st, fluid.to(torch.float32), p, n)
     torch.cuda.synchronize()
-    assert hcz_fused.LAUNCHES == before + n
+    assert profiling.counter("kernel.steps.hcz_step") == before + n
     _assert_close(out, hcz.run(st, fluid, p, n), TOL2[dtype])
 
 
 def test_launches_count_steps(cuda_device):
-    """One launch a step: ``LAUNCHES`` grows by ``n_steps`` (0 for 0 steps),
-    ``HALO_LAUNCHES`` by ``nsub`` for the halo entry, each from one C call."""
+    """One launch a step: ``kernel.steps.hcz_step`` and
+    ``kernel.launches.hcz_step`` grow by ``n_steps`` (0 for 0 steps), their
+    ``.halo`` counters by ``nsub`` for the halo entry, each from one C
+    call."""
     p, (f, g), fluid = _state_2d("channel_45x37", torch.float32, cuda_device)
     fl = fluid.to(torch.float32)
+    names = [f"kernel.{what}.hcz_step{tail}" for tail in ("", ".halo")
+             for what in ("steps", "launches")]
     for n in (0, 1, 2, 7):
-        before, halo_before = hcz_fused.LAUNCHES, hcz_fused.HALO_LAUNCHES
+        before = [profiling.counter(name) for name in names]
         hcz_fused.run_fused(f, g, fl, p, n)
-        assert hcz_fused.LAUNCHES == before + n
-        assert hcz_fused.HALO_LAUNCHES == halo_before
+        assert [profiling.counter(name) for name in names] == [
+            before[0] + n, before[1] + n, before[2], before[3]]
     for nsub in (1, 2):
-        before, halo_before = hcz_fused.LAUNCHES, hcz_fused.HALO_LAUNCHES
+        before = [profiling.counter(name) for name in names]
         hcz_fused.step_fused_halo(f, g, fl, p, nsub)
-        assert hcz_fused.HALO_LAUNCHES == halo_before + nsub
-        assert hcz_fused.LAUNCHES == before
+        assert [profiling.counter(name) for name in names] == [
+            before[0], before[1], before[2] + nsub, before[3] + nsub]
     torch.cuda.synchronize()
 
 
@@ -122,10 +127,10 @@ def test_hcz3d_kernel_matches_plain(cuda_device, box, dtype):
                              device=cuda_device)
     fluid = hcz.geometry_periodic_3d(*box, device=cuda_device)
     n = STEPS[dtype]
-    before = hcz3d_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.hcz3d_step")
     out = hcz3d_fused.run_fused_3d(*st, p, n)
     torch.cuda.synchronize()
-    assert hcz3d_fused.LAUNCHES == before + n
+    assert profiling.counter("kernel.steps.hcz3d_step") == before + n
     ref = hcz.run(st, fluid, p, n, lattice=hcz.D3Q19, three_d=True)
     _assert_close(out, ref, TOL3[dtype])
 
@@ -148,24 +153,29 @@ class _CountingLib:
 
 
 def test_hcz3d_one_ctypes_call_a_call(cuda_device, monkeypatch):
-    """A call of n steps is one C call and adds n to ``LAUNCHES`` (0 and no
-    call for 0 steps); the halo entry adds nsub to ``HALO_LAUNCHES``."""
+    """A call of n steps is one C call and adds n to
+    ``kernel.steps.hcz3d_step`` and 2n to ``kernel.launches.hcz3d_step`` (0
+    and no call for 0 steps); the halo entry adds nsub to
+    ``kernel.steps.hcz3d_step.halo``."""
     from multiphase_lbm_tpu_torch.ops import _build
 
     counting = _CountingLib(_build.load())
     monkeypatch.setattr(_build, "load", lambda: counting)
     p = hcz.HCZParams(omega=1.2)
     f, g = hcz.init_droplet_3d(37, 11, 9, p, radius=3.0, device=cuda_device)
+    steps, launches = "kernel.steps.hcz3d_step", "kernel.launches.hcz3d_step"
     for n in (0, 1, 2, 7):
-        before, calls = hcz3d_fused.LAUNCHES, counting.calls
+        before, calls = profiling.counter(steps), counting.calls
+        launched = profiling.counter(launches)
         hcz3d_fused.run_fused_3d(f, g, p, n)
-        assert hcz3d_fused.LAUNCHES == before + n
+        assert profiling.counter(steps) == before + n
+        assert profiling.counter(launches) == launched + 2 * n
         assert counting.calls == calls + (n > 0)
     f2, g2 = hcz.init_droplet_3d(16, 16, 40, p, device=cuda_device)
     for nsub in (1, 2):
-        before, calls = hcz3d_fused.HALO_LAUNCHES, counting.calls
+        before, calls = profiling.counter(steps + ".halo"), counting.calls
         hcz3d_fused.step_fused_halo_3d(f2, g2, p, nsub)
-        assert hcz3d_fused.HALO_LAUNCHES == before + nsub
+        assert profiling.counter(steps + ".halo") == before + nsub
         assert counting.calls == calls + 1
     torch.cuda.synchronize()
 
@@ -176,11 +186,11 @@ def test_hcz3d_refuses_boxes_past_32_bit_indices(cuda_device):
     p = hcz.HCZParams()
     f = torch.empty((19, 1024, 1024, 108), device=cuda_device)
     allocated = torch.cuda.memory_allocated()
-    before = hcz3d_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.hcz3d_step")
     with pytest.raises(ValueError, match="2\\^31"):
         hcz3d_fused.run_fused_3d(f, f, p, 1)
     assert torch.cuda.memory_allocated() == allocated
-    assert hcz3d_fused.LAUNCHES == before
+    assert profiling.counter("kernel.steps.hcz3d_step") == before
     del f
 
 
@@ -218,12 +228,14 @@ def test_kernels_reject_unsupported_state(cuda_device):
 
 
 def test_cli_runs_through_the_kernels(cuda_device, tmp_path):
-    before2, before3 = hcz_fused.LAUNCHES, hcz3d_fused.LAUNCHES
+    before2 = profiling.counter("kernel.steps.hcz_step")
+    before3 = profiling.counter("kernel.steps.hcz3d_step")
     assert coolbm.main(["rayleighTaylor2D", "--f32", "--steps", "64",
                         "--outdir", str(tmp_path / "rt")]) == 0
     assert coolbm.main(["laplace3D", "--f32", "--steps", "20",
                         "--outdir", str(tmp_path / "l3")]) == 0
-    assert hcz_fused.LAUNCHES > before2 and hcz3d_fused.LAUNCHES > before3
+    assert profiling.counter("kernel.steps.hcz_step") > before2
+    assert profiling.counter("kernel.steps.hcz3d_step") > before3
     assert (tmp_path / "rt" / "spike_bubble_position.dat").exists()
     assert (tmp_path / "l3" / "sol_0000000.vtk").exists()
 

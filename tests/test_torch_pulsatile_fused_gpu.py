@@ -31,6 +31,7 @@ import torch
 from multiphase_lbm_tpu_torch import bench
 from multiphase_lbm_tpu_torch.models import pulsatile as pm
 from multiphase_lbm_tpu_torch.ops import pulsatile_fused as pf
+from multiphase_lbm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -60,10 +61,10 @@ def _max_err(a, b, name):
 def test_one_step_matches_plain(cuda_device, dtype):
     st = _warm(dtype, cuda_device, 4)
     ref, (n_dep, n_cells) = pm.run_with_diag(st, 4, P, 1)
-    before = pf.LAUNCHES
+    before = profiling.counter("kernel.steps.pulsatile_step")
     out, diag = pf.run_fused_full(st, 4, P, 1)
     torch.cuda.synchronize()
-    assert pf.LAUNCHES == before + 1
+    assert profiling.counter("kernel.steps.pulsatile_step") == before + 1
     assert out.g_stream.dtype == dtype
     assert int(diag[0]) == 0 and n_dep == 0
     assert int(diag[1]) == n_cells > 0

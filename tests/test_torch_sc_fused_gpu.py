@@ -23,6 +23,7 @@ import torch
 from multiphase_lbm_tpu_torch.models import shan_chen as sc
 from multiphase_lbm_tpu_torch.ops import sc_fused
 from multiphase_lbm_tpu_torch.runners import coolbm
+from multiphase_lbm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -75,11 +76,11 @@ def test_kernel_matches_plain(cuda_device, geometry, collision, center, dtype,
     if geometry == "layers":
         p = _layered(p)
     f, fluid = _state(geometry, dtype, cuda_device, p)
-    before = sc_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.sc_step")
     out = sc_fused.run_fused(f, fluid.to(torch.float32), p, steps,
                              periodic=geometry == "periodic")
     torch.cuda.synchronize()
-    assert sc_fused.LAUNCHES == before + steps
+    assert profiling.counter("kernel.steps.sc_step") == before + steps
     ref = sc.run(f, fluid, p, steps)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL[dtype])
 
@@ -105,18 +106,18 @@ def test_kernel_rejects_unsupported_params_on_cuda(cuda_device):
 
 
 def test_cli_runs_through_the_kernel(cuda_device, tmp_path):
-    before = sc_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.sc_step")
     assert coolbm.main(["contactAngle2D", "--f32", "--steps", "40",
                         "--outdir", str(tmp_path), "--device", "cuda"]) == 0
-    assert sc_fused.LAUNCHES > before
+    assert profiling.counter("kernel.steps.sc_step") > before
     assert (tmp_path / "sol_0000000.vtk").exists()
     assert (tmp_path / "contact_angle.dat").exists()
 
 
 def test_layered_cli_runs_through_the_kernel(cuda_device, tmp_path):
-    before = sc_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.sc_step")
     assert coolbm.main(["twoLayeredFlow2D_sc", "--steps", "40",
                         "--outdir", str(tmp_path), "--device", "cuda"]) == 0
-    assert sc_fused.LAUNCHES > before
+    assert profiling.counter("kernel.steps.sc_step") > before
     for name in ("sol_0000000.vtk", "energy.dat", "mass.dat"):
         assert (tmp_path / name).exists()

@@ -21,6 +21,7 @@ import torch
 from multiphase_lbm_tpu_torch.models import shan_chen_rt as rt
 from multiphase_lbm_tpu_torch.ops import scrt_fused
 from multiphase_lbm_tpu_torch.runners import coolbm
+from multiphase_lbm_tpu_torch.utils import profiling
 from multiphase_lbm_tpu_torch.validation import scrt_reference
 
 pytestmark = pytest.mark.gpu
@@ -50,10 +51,10 @@ def _state(nx, ny, omega, dtype, device):
 def test_scrt_kernel_matches_plain(cuda_device, omega, shape, dtype):
     p, f, fluid = _state(*shape, omega, dtype, cuda_device)
     n = STEPS[dtype]
-    before = scrt_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.scrt_step")
     out = scrt_fused.run_fused(f, p, n)
     torch.cuda.synchronize()
-    assert scrt_fused.LAUNCHES == before + n
+    assert profiling.counter("kernel.steps.scrt_step") == before + n
     assert out.dtype == dtype
     assert bool((out[:, 0] == 0).all()) and bool((out[:, -1] == 0).all())
     np.testing.assert_allclose(out.cpu().numpy(),
@@ -81,10 +82,10 @@ def test_kernel_rejects_unsupported_state(cuda_device):
 
 
 def test_cli_runs_through_the_kernel(cuda_device, tmp_path):
-    before = scrt_fused.LAUNCHES
+    before = profiling.counter("kernel.steps.scrt_step")
     assert coolbm.main(["RayleighTaylor2D_sc", "--f32", "--steps", "200",
                         "--outdir", str(tmp_path)]) == 0
-    assert scrt_fused.LAUNCHES > before
+    assert profiling.counter("kernel.steps.scrt_step") > before
     assert (tmp_path / "spike_bubble_position.dat").exists()
 
 

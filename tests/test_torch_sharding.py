@@ -42,6 +42,7 @@ from multiphase_lbm_tpu_torch.models import shan_chen_rt as trt
 from multiphase_lbm_tpu_torch.ops import (fakhari_fused, hcz3d_fused,
                                           hcz_fused, sc_fused, scrt_fused)
 from multiphase_lbm_tpu_torch.parallel import sharding as sh
+from multiphase_lbm_tpu_torch.utils import profiling
 from multiphase_lbm_tpu_torch.utils.convert import (fakhari_params_from_jax,
                                                     hcz_params_from_jax,
                                                     params_from_jax,
@@ -296,16 +297,15 @@ def test_decomposed_path_matches_jax_global_step(name, run):
     """Two calls of each make_fused_*_step (4 shards; 2 × 2 for the 2D
     paths; HCZ 1D at nsub = 5, the others at nsub = 2) against JAX's global
     XLA run of as many steps, float64."""
-    before = (sc_fused.HALO_LAUNCHES, hcz_fused.HALO_LAUNCHES,
-              hcz3d_fused.HALO_LAUNCHES, fakhari_fused.HALO_LAUNCHES,
-              scrt_fused.HALO_LAUNCHES)
+    halo = [f"kernel.{what}.{m.FAMILY}.halo" for what in ("steps", "launches")
+            for m in (sc_fused, hcz_fused, hcz3d_fused, fakhari_fused,
+                      scrt_fused)]
+    before = [profiling.counters().get(name, 0) for name in halo]
     for out, ref in run():
         assert out.shape == np.shape(ref)
         np.testing.assert_allclose(out.gather().numpy(), np.asarray(ref), **F64)
     # on the CPU the halo entries run the plain path and launch nothing
-    assert before == (sc_fused.HALO_LAUNCHES, hcz_fused.HALO_LAUNCHES,
-                      hcz3d_fused.HALO_LAUNCHES, fakhari_fused.HALO_LAUNCHES,
-                      scrt_fused.HALO_LAUNCHES)
+    assert before == [profiling.counters().get(name, 0) for name in halo]
 
 
 # ─── the port on its own ───────────────────────────────────────────────────

@@ -33,8 +33,17 @@ from multiphase_lbm_tpu.ops import pallas_combustion
 from multiphase_lbm_tpu_torch.models import combustion as tcb
 from multiphase_lbm_tpu_torch.ops import combustion_fused as cf
 from multiphase_lbm_tpu_torch.parallel import sharding as sh
+from multiphase_lbm_tpu_torch.utils import profiling
 from multiphase_lbm_tpu_torch.utils.convert import combustion_params_from_jax
 from multiphase_lbm_tpu_torch.validation import multichip_check
+
+
+def _halo_launches():
+    """The combustion halo entry's counted steps and launches."""
+    c = profiling.counters()
+    return tuple(c.get(f"kernel.{what}.{cf.FAMILY}.halo", 0)
+                 for what in ("steps", "launches"))
+
 
 # The tier-1 command runs six xdist workers; with one intra-op thread
 # per core in each, PyTorch's pools spin against each other (a plain HCZ
@@ -85,12 +94,12 @@ def test_halo_entry_matches_pallas_interpret():
         jnp.asarray(np.asarray(m9)[:, :, rows]),
         jnp.asarray(np.asarray(m2)[:, rows]), row0, jp, konv=True, nsub=2,
         tile=16, halo=8, interpret=True)
-    before = cf.HALO_LAUNCHES
+    before = _halo_launches()
     out = cf.step_fused_halo(
         tuple(torch.as_tensor(a) for a in ext),
         cf.slab_tables(tp, row0, ny_ext, CPU, torch.float32), row0, tp,
         konv=True, nsub=2, halo=8)
-    assert cf.HALO_LAUNCHES == before      # the plain path launches nothing
+    assert _halo_launches() == before      # the plain path launches nothing
     assert all(o.shape == (9, 16, 128) and o.dtype == torch.float32
                for o in out)
     own = flags[:16]
@@ -117,10 +126,10 @@ def test_decomposed_path_matches_jax_global_step(topology, konv):
     step = sh.make_fused_combustion_step(mesh, tp, konv=konv, nsub=2)
     out = tuple(sh.shard_lattice(torch.as_tensor(a), mesh)
                 for a in arrays[:8])
-    before = cf.HALO_LAUNCHES
+    before = _halo_launches()
     for _ in range(2):
         out = step(*out)
-    assert cf.HALO_LAUNCHES == before
+    assert _halo_launches() == before
     assert len(out) == 8
     for o, r in zip(out, ref[:8]):
         assert o.shape == (9, 64, 128)

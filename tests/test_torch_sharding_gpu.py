@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from multiphase_lbm_tpu_torch.ops import combustion_fused
+from multiphase_lbm_tpu_torch.utils import profiling
 from multiphase_lbm_tpu_torch.validation import multichip_check
 
 pytestmark = pytest.mark.gpu
@@ -83,7 +84,8 @@ def test_decomposed_path_matches_single_lattice_kernel(cuda_device, name):
 def test_combustion_full_width_matches_single_lattice_kernel(cuda_device):
     """840 × 160 on 4 y shards, nsub 2, 100 steps: 50 calls, each launching
     the kernel for 2 steps on every shard's slab."""
-    before = combustion_fused.HALO_LAUNCHES
+    halo_steps = f"kernel.steps.{combustion_fused.FAMILY}.halo"
+    before = profiling.counter(halo_steps)
     res = multichip_check.check("combustion", device="cuda", full=True)
     assert res["ok"], multichip_check.summary(res)
-    assert combustion_fused.HALO_LAUNCHES - before == 50 * 4 * 2
+    assert profiling.counter(halo_steps) - before == 50 * 4 * 2
