@@ -53,14 +53,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2000/6000) and the plain path (5/15).
   6. RTI main path — bench --model rti: RTI-2048 float32 through hcz_step
      (slope 50/150 steps) beside the plain path (2/6 steps); state finite,
-     phase-mass drift Σf < 1e-4 (summed in float64).
+     phase-mass drift Σf < 1e-4 (summed in float64); the record kernel
+     (hcz_fused.record_2d) on the state the slope left, against
+     kinetic_energy (rtol 1e-5) and interface_heights (equal), and its time
+     (CUDA events over 100 calls) beside the plain record's (3 calls, the
+     φ copy to the host included).
   7. literature gate — validation.rti_regression to t = 2 at N = 256
      (12,800 steps through hcz_step): position deviations from the
      published curves < 0.15, velocity deviations < 0.25.
   8. RTI CLI  — coolbm rayleighTaylor2D --f32 --steps 6400 (config N = 256)
      writes sol_0000000.vtk, sol_0003200.vtk, energy.dat,
      spike_bubble_position.dat, spike_bubble_velocity.dat and its MLUPS
-     line, through hcz_step.
+     line, through hcz_step, with one hcz_record launch a line of
+     energy.dat.
   9. 3D main path — bench --model hcz3d: 128³ float32 through hcz3d_step
      (slope 50/150) beside the plain path (2/6), and bench --model hcz3d
      --profile 20 in a process of its own: LAUNCHES_PER_STEP (2) B5
@@ -276,6 +281,11 @@ def bound(work, flop_rate=F32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The record kernel's work a cell in float32: f and the mask read once and
+# the 8 moving g (u needs no g_0), 72 B; its operations, a subset of the
+# step's, at most the step's 600
+RECORD_WORK_PER_CELL = (72, 600)
+
 # the kernel of csrc/sc_step.cu (B1)
 SC_KERNELS = ("sc_step_kernel",)
 # the kernels of csrc/combustion_step.cu (B7)
@@ -422,6 +432,7 @@ def main():
     from multiphase_lbm_tpu_torch.validation import scrt_reference
     from multiphase_lbm_tpu_torch.validation import womersley
     from multiphase_lbm_tpu_torch.validation import layered_poiseuille
+    from multiphase_lbm_tpu_torch.utils import profiling
     from multiphase_lbm_tpu_torch.utils.profiling import measure_mlups_slope
 
     # ---- 2. build ----
@@ -792,7 +803,53 @@ def main():
     check(drift < 1e-4, f"RTI phase-mass drift {drift}")
     say(f"[main path] kernel {rec_rti['value']:.1f} MLUPS vs plain "
         f"{rec_rti_plain['value']:.1f} MLUPS at RTI-2048 float32 on {card}")
-    del rd, st0
+    # the record of the state the slope left: the kernel against the plain
+    # record (kinetic_energy, and interface_heights of φ copied to the host)
+    p_r = rti_regression.rti_params(2048)
+    fluid_r = hcz.geometry_channel(2048, 8194, device=dev)
+    fl_r = fluid_r.to(torch.float32)
+
+    def record_kernel():
+        return hcz_fused.record_2d(*rd.out, fl_r, p_r, heights=True)
+
+    def record_plain():
+        e = hcz.kinetic_energy(rd.out, fluid_r, p_r)
+        phi = hcz.order_parameter(rd.out[0]).cpu().numpy()
+        return float(e), hcz.interface_heights(phi, p_r)
+
+    got = record_kernel().cpu()
+    e_p, h_p = record_plain()
+    err_rec = abs(got[0].item() - e_p)
+    h_k = (int(got[1]), int(got[2]))
+    say(f"[kernel vs plain] hcz_record RTI-2048 2048x8194 float32: energy "
+        f"{got[0].item():.9e} vs {e_p:.9e} (abs err {err_rec:.3e}, rtol "
+        f"1e-5), spike/bubble {h_k} vs {h_p}")
+    check(e_p > 0.0 and err_rec <= 1e-5 * e_p,
+          f"record energy {got[0].item()} vs plain {e_p}")
+    check(h_k == h_p, f"record heights {h_k} vs plain {h_p}")
+
+    def event_ms(fn, calls):
+        """Device ms a call of ``fn`` by CUDA events over ``calls`` calls,
+        after one warm call."""
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(calls):
+            fn()
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1) / calls
+
+    ms_record = event_ms(record_kernel, 100)
+    ms_record_plain = event_ms(record_plain, 3)
+    per_record = tuple(2048 * 8194 * v for v in RECORD_WORK_PER_CELL)
+    bound_record, _ = bound(per_record)
+    say(f"[main path] hcz_record RTI-2048 float32: kernel {ms_record:.4f} ms "
+        f"a record ({100 * bound_record / ms_record:.1f}% of its "
+        f"{bound_record:.4f} ms bound) vs plain {ms_record_plain:.2f} ms, on "
+        f"{card}")
+    del rd, st0, fluid_r, fl_r, got
 
     # ---- 7. literature gate: RTI at N = 256 to t = 2 ----
     t0 = time.perf_counter()
@@ -808,11 +865,22 @@ def main():
 
     # ---- 8. RTI CLI ----
     before_cli = _steps(hcz_fused)
-    run_cli(coolbm, ["rayleighTaylor2D", "--f32", "--steps", "6400"],
-            ("sol_0000000.vtk", "sol_0003200.vtk", "energy.dat",
-             "spike_bubble_position.dat", "spike_bubble_velocity.dat"))
+    record_before = profiling.counter("kernel.launches.hcz_record")
+    with tempfile.TemporaryDirectory() as rti_out:
+        run_cli(coolbm, ["rayleighTaylor2D", "--f32", "--steps", "6400"],
+                ("sol_0000000.vtk", "sol_0003200.vtk", "energy.dat",
+                 "spike_bubble_position.dat", "spike_bubble_velocity.dat"),
+                outdir=rti_out)
+        with open(os.path.join(rti_out, "energy.dat")) as fh:
+            n_records = len(fh.read().splitlines())
     hcz_launches = _steps(hcz_fused)
     check(hcz_launches > before_cli, "the RTI CLI did not launch the kernel")
+    record_launches = (profiling.counter("kernel.launches.hcz_record")
+                       - record_before)
+    say(f"[cli] rayleighTaylor2D: {record_launches} hcz_record launches for "
+        f"{n_records} records")
+    check(record_launches == n_records > 0,
+          "the RTI CLI did not take each record from one hcz_record launch")
 
     # ---- 9. 3D main path: the 128³ droplet and the laplace3D CLI ----
     rec_3d_plain, rd, _ = bench.run(model="hcz3d", steps=2, steps2=6,
@@ -1349,6 +1417,11 @@ def main():
         entry("hcz_step", "hcz_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz.py:42", hcz_launches, err_hcz,
               rec_rti, rec_rti_plain, per_cell(hcz_fused, 2048 * 8194)),
+        # the record kernel in place of kinetic_energy and interface_heights
+        entry("hcz_record", "hcz_step.cu",
+              "multiphase_lbm_tpu/models/hcz.py:323", record_launches,
+              err_rec, {"ms_per_step": ms_record},
+              {"ms_per_step": ms_record_plain}, per_record),
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
               hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain,

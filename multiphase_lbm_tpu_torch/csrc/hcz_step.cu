@@ -55,6 +55,13 @@
 // 148 B bound: f, g and the mask in, f and g out; the halo's extra f reads
 // are L2 hits.  run_steps launches n_steps times on the caller's stream,
 // ping-ponging two buffer pairs, so a call costs one host crossing.
+//
+// The record (hcz_record_kernel, the C entries hcz_record_*): the drivers'
+// energy and spike/bubble record of one state in one launch over the same
+// tiles, through the same stage 1 and 2 code (phi_box, fields_box), then u
+// alone in the own cell, a block sum and a fixed-order total in the last
+// block; the host reads back three doubles instead of φ and the plain
+// diagnostics' fields.
 #include <cuda_runtime.h>
 
 // Model constants, filled by multiphase_lbm_tpu_torch/ops/hcz_fused.py
@@ -141,6 +148,65 @@ __device__ __forceinline__ void ring_cell(int r, int& hy, int& hx) {
   }
 }
 
+// Stage 1 of both kernels: φ and the fluid flag over the H box (the tile
+// plus 2 cells) into shared memory, the own cell i = (y0 + ty, x0 + tx)
+// first, then the halo ring shared out over the block.
+template <typename T>
+__device__ __forceinline__ void phi_box(const T* __restrict__ f,
+                                        const float* __restrict__ mask,
+                                        T* s_phi, unsigned char* s_fl, int n,
+                                        int i, int tid, int tx, int ty,
+                                        int x0, int y0, int ny, int nx) {
+  {
+    T v[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = f[k * n + i];
+    s_phi[(ty + 2) * HX + tx + 2] = sum9(v);
+    s_fl[(ty + 2) * HX + tx + 2] = mask[i] > 0.5f;
+  }
+  for (int r = tid; r < RING; r += THREADS) {
+    int hy, hx;
+    ring_cell(r, hy, hx);
+    const int j = wrap(y0 + hy - 2, ny) * nx + wrap(x0 + hx - 2, nx);
+    T v[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = f[k * n + j];
+    s_phi[hy * HX + hx] = sum9(v);
+    s_fl[hy * HX + hx] = mask[j] > 0.5f;
+  }
+}
+
+// Stage 2 of both kernels: ρ and ∇²φ (mirrored reads, at solid cells too,
+// as the plain path forms it) over the G box (the tile plus 1 cell), once
+// a cell; with PSI also ψρ and ψφ, which only the step reads.
+template <typename T, bool PSI>
+__device__ __forceinline__ void fields_box(const T* s_phi,
+                                           const unsigned char* s_fl,
+                                           T* s_rho, T* s_pr, T* s_pp,
+                                           T* s_lap, int tid,
+                                           const HCZConst& c) {
+  for (int r = tid; r < GX * GY; r += THREADS) {
+    const int gy = r / GX, gx = r - gy * GX;
+    const int h = (gy + 1) * HX + gx + 1;
+    const T pc = s_phi[h];
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (k == 4) continue;
+      const int o = cy(k) * HX + cx(k);
+      const T v = s_fl[h + o] ? s_phi[h + o] : s_phi[h - o];
+      acc += T(wk(k)) * (v - pc);
+    }
+    s_lap[r] = T(6) * acc;
+    const T rho = rho_of_phi(pc, c);
+    s_rho[r] = rho;
+    if constexpr (PSI) {
+      s_pr[r] = cs_psi(rho, c);
+      s_pp[r] = cs_psi(pc, c);
+    }
+  }
+}
+
 // Three blocks of 256 threads per SM in float32: 80 registers, no spills,
 // 24 warps (the three-launch collide ran 16).  Four blocks fit 64
 // registers without spilling but ran slower at RTI-2048 (PERF.md); in
@@ -163,44 +229,10 @@ hcz_step_kernel(const T* __restrict__ f, const T* __restrict__ g,
   const int i = y * nx + x;
 
   // ---- stage 1: φ and the flag over the H box, own cell first ----
-  {
-    T v[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) v[k] = f[k * n + i];
-    s_phi[(ty + 2) * HX + tx + 2] = sum9(v);
-    s_fl[(ty + 2) * HX + tx + 2] = mask[i] > 0.5f;
-  }
-  for (int r = tid; r < RING; r += THREADS) {
-    int hy, hx;
-    ring_cell(r, hy, hx);
-    const int j = wrap(y0 + hy - 2, ny) * nx + wrap(x0 + hx - 2, nx);
-    T v[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) v[k] = f[k * n + j];
-    s_phi[hy * HX + hx] = sum9(v);
-    s_fl[hy * HX + hx] = mask[j] > 0.5f;
-  }
+  phi_box(f, mask, s_phi, s_fl, n, i, tid, tx, ty, x0, y0, ny, nx);
   __syncthreads();
-
   // ---- stage 2: ρ, ψρ, ψφ and ∇²φ over the G box, once per cell ----
-  for (int r = tid; r < GX * GY; r += THREADS) {
-    const int gy = r / GX, gx = r - gy * GX;
-    const int h = (gy + 1) * HX + gx + 1;
-    const T pc = s_phi[h];
-    T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      if (k == 4) continue;
-      const int o = cy(k) * HX + cx(k);
-      const T v = s_fl[h + o] ? s_phi[h + o] : s_phi[h - o];
-      acc += T(wk(k)) * (v - pc);
-    }
-    s_lap[r] = T(6) * acc;
-    const T rho = rho_of_phi(pc, c);
-    s_rho[r] = rho;
-    s_pr[r] = cs_psi(rho, c);
-    s_pp[r] = cs_psi(pc, c);
-  }
+  fields_box<T, true>(s_phi, s_fl, s_rho, s_pr, s_pp, s_lap, tid, c);
   __syncthreads();
 
   // ---- stage 3: the own cell's collide and push ----
@@ -312,6 +344,148 @@ hcz_step_kernel(const T* __restrict__ f, const T* __restrict__ g,
   }
 }
 
+// Sum of e and the largest h0 and h1 over the block, in a fixed order:
+// the shuffle tree within each warp, then the warps in turn, on thread 0
+// (the other threads keep partial values).  Every thread of the block
+// must call it.
+__device__ __forceinline__ void block_reduce(double& e, int& h0, int& h1,
+                                             double* s_e, int* s_h,
+                                             int tid) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    e += __shfl_down_sync(0xffffffffu, e, o);
+    const int a0 = __shfl_down_sync(0xffffffffu, h0, o);
+    const int a1 = __shfl_down_sync(0xffffffffu, h1, o);
+    h0 = a0 > h0 ? a0 : h0;
+    h1 = a1 > h1 ? a1 : h1;
+  }
+  if (tid % 32 == 0) {
+    s_e[tid / 32] = e;
+    s_h[2 * (tid / 32)] = h0;
+    s_h[2 * (tid / 32) + 1] = h1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < THREADS / 32; ++w) {
+      e += s_e[w];
+      h0 = s_h[2 * w] > h0 ? s_h[2 * w] : h0;
+      h1 = s_h[2 * w + 1] > h1 ? s_h[2 * w + 1] : h1;
+    }
+  }
+}
+
+// The record of one state (what models/hcz.kinetic_energy and
+// interface_heights compute from it), in one launch over the step's tiles:
+// stages 1 and 2 as in the step (ψ left out), then each fluid cell's
+//   u = (Σ c g + F/6)/(ρ/3),  F = κρ∇∇²φ + (gx ρ + Gx_const, gravity ρ),
+// exactly as stage 3 of the step forms it, and |u|² summed in double; and,
+// for the spike column x = nx/2 and the bubble column x = 0, the largest y
+// in [1, ny − 2] with φ ≤ φ_mid (0 if none).  Each block leaves its sum and
+// its two heights in part and hpart; the last block to finish (a counter
+// the entry zeroes) adds the sums up in block order and writes
+// out = [½ Σ|u|² / (ny·nx), spike height, bubble height].  No float
+// atomics: the same state gives the same bits.  Reads f and the mask once
+// (the halo's re-reads hit L2) and 8 of the 9 g: 72 B a cell in float32.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 3 : 1)
+hcz_record_kernel(const T* __restrict__ f, const T* __restrict__ g,
+                  const float* __restrict__ mask, int ny, int nx,
+                  HCZConst c, double phi_mid, double* __restrict__ part,
+                  int* __restrict__ hpart, unsigned* __restrict__ done,
+                  double* __restrict__ out) {
+  __shared__ T s_phi[HY * HX];
+  __shared__ unsigned char s_fl[HY * HX];
+  __shared__ T s_rho[GY * GX], s_lap[GY * GX];
+  __shared__ double s_e[THREADS / 32];
+  __shared__ int s_h[2 * (THREADS / 32)];
+  __shared__ bool s_last;
+
+  const int n = ny * nx;
+  const int tid = threadIdx.x;
+  const int tx = tid % TILE_X, ty = tid / TILE_X;
+  const int x0 = blockIdx.x * TILE_X, y0 = blockIdx.y * TILE_Y;
+  const bool active = x0 + tx < nx && y0 + ty < ny;
+  const int x = wrap(x0 + tx, nx), y = wrap(y0 + ty, ny);
+  const int i = y * nx + x;
+
+  phi_box(f, mask, s_phi, s_fl, n, i, tid, tx, ty, x0, y0, ny, nx);
+  __syncthreads();
+  fields_box<T, false>(s_phi, s_fl, s_rho, nullptr, nullptr, s_lap, tid, c);
+  __syncthreads();
+
+  // ---- the own cell's |u|² and its part in the heights ----
+  const int hc = (ty + 2) * HX + tx + 2;
+  double e = 0.0;
+  int h0 = 0, h1 = 0;
+  const int spike_x = nx / 2;
+  if (active && y >= 1 && y <= ny - 2 && s_phi[hc] <= T(phi_mid)) {
+    if (x == spike_x) h0 = y;
+    if (x == 0) h1 = y;
+  }
+  if (active && s_fl[hc]) {
+    T gk[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      if (k != 4) gk[k] = g[k * n + i];
+    const int gc = (ty + 1) * GX + tx + 1;
+    const T rho = s_rho[gc];
+    T glx = T(0), gly = T(0);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (k == 4) continue;
+      const int o = cy(k) * GX + cx(k);
+      const T vlap = s_lap[gc + (s_fl[hc + cy(k) * HX + cx(k)] ? o : -o)];
+      if (cx(k)) glx += T(wk(k) * cx(k)) * vlap;
+      if (cy(k)) gly += T(wk(k) * cy(k)) * vlap;
+    }
+    glx *= T(3);
+    gly *= T(3);
+    const T Fx = T(c.kappa) * rho * glx + T(c.gx) * rho + T(c.Gx_const);
+    const T Fy = T(c.kappa) * rho * gly + T(c.gravity) * rho;
+    T momx = T(0), momy = T(0);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (cx(k)) momx += T(cx(k)) * gk[k];
+      if (cy(k)) momy += T(cy(k)) * gk[k];
+    }
+    const T rho3 = rho * T(1.0 / 3.0);
+    const double ux = (momx + Fx * T(1.0 / 6.0)) / rho3;
+    const double uy = (momy + Fy * T(1.0 / 6.0)) / rho3;
+    e = ux * ux + uy * uy;
+  }
+
+  // ---- the block's part, then the last block's fixed-order total ----
+  block_reduce(e, h0, h1, s_e, s_h, tid);
+  const int nb = gridDim.x * gridDim.y;
+  if (tid == 0) {
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    part[b] = e;
+    hpart[2 * b] = h0;
+    hpart[2 * b + 1] = h1;
+    __threadfence();
+    s_last = atomicAdd(done, 1u) == (unsigned)nb - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  e = 0.0;
+  h0 = h1 = 0;
+  for (int b = tid; b < nb; b += THREADS) e += __ldcg(&part[b]);
+  // a column's heights come from the blocks of its tile column
+  for (int by = tid; by < (int)gridDim.y; by += THREADS) {
+    const int v0 = __ldcg(&hpart[2 * (by * gridDim.x + spike_x / TILE_X)]);
+    const int v1 = __ldcg(&hpart[2 * by * gridDim.x + 1]);
+    h0 = v0 > h0 ? v0 : h0;
+    h1 = v1 > h1 ? v1 : h1;
+  }
+  block_reduce(e, h0, h1, s_e, s_h, tid);
+  if (tid == 0) {
+    out[0] = 0.5 * e / ((double)ny * nx);
+    out[1] = h0;
+    out[2] = h1;
+  }
+}
+
 template <typename T>
 int run_steps(const T* f, const T* g, T* fa, T* ga, T* fb, T* gb,
               const float* mask, int ny, int nx, int n_steps,
@@ -331,6 +505,28 @@ int run_steps(const T* f, const T* g, T* fa, T* ga, T* fb, T* gb,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The record's launch.  The workspace ws, 2 · (blocks) + 1 doubles, holds
+// part (a double a block), hpart (two ints a block) and the counter, which
+// is zeroed first.
+template <typename T>
+int run_record(const T* f, const T* g, const float* mask, double* ws,
+               double* out, int ny, int nx, const HCZConst* c,
+               double phi_mid, cudaStream_t stream) {
+  const long long tiles_y = (ny + TILE_Y - 1) / TILE_Y;
+  if (ny < 1 || nx < 1 || 9LL * ny * nx >= (1LL << 31) || tiles_y > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((nx + TILE_X - 1) / TILE_X), (unsigned)tiles_y);
+  const long long nb = (long long)grid.x * grid.y;
+  int* hpart = (int*)(ws + nb);
+  unsigned* done = (unsigned*)(ws + 2 * nb);
+  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  hcz_record_kernel<T><<<grid, THREADS, 0, stream>>>(
+      f, g, mask, ny, nx, *c, phi_mid, ws, hpart, done, out);
+  err = cudaGetLastError();
+  return (int)err;
 }
 
 }  // namespace
@@ -360,6 +556,33 @@ int hcz_step_f64(const void* f, const void* g, void* fa, void* ga, void* fb,
                            (double*)ga, (double*)fb, (double*)gb,
                            (const float*)mask, ny, nx, n_steps,
                            (const HCZConst*)consts, (cudaStream_t)stream);
+}
+
+// The record of the state (f, g), each (9, ny, nx), with the (ny, nx)
+// float32 fluid mask: out (3 doubles) = [½ Σ|u|² over the fluid / (ny·nx),
+// the largest y in [1, ny − 2] with φ ≤ phi_mid in the spike column
+// x = nx/2, the same in the bubble column x = 0] (a height 0 where there is
+// none).  ws holds 2 · ⌈ny/8⌉ · ⌈nx/32⌉ + 1 doubles of workspace (two a
+// tile, and the counter).  One memset and one launch on the stream; returns
+// the cudaError_t (cudaErrorInvalidValue, launching nothing, for a lattice
+// the step refuses).
+
+int hcz_record_f32(const void* f, const void* g, const void* mask, void* ws,
+                   void* out, int ny, int nx, const void* consts,
+                   double phi_mid, void* stream) {
+  return run_record<float>((const float*)f, (const float*)g,
+                           (const float*)mask, (double*)ws, (double*)out, ny,
+                           nx, (const HCZConst*)consts, phi_mid,
+                           (cudaStream_t)stream);
+}
+
+int hcz_record_f64(const void* f, const void* g, const void* mask, void* ws,
+                   void* out, int ny, int nx, const void* consts,
+                   double phi_mid, void* stream) {
+  return run_record<double>((const double*)f, (const double*)g,
+                            (const float*)mask, (double*)ws, (double*)out, ny,
+                            nx, (const HCZConst*)consts, phi_mid,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

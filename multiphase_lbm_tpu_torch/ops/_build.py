@@ -36,6 +36,9 @@ ENTRY_POINTS = {
     # f, g, fa, ga, fb, gb, mask, ny, nx, n_steps, consts, stream
     "hcz_step_f32": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
     "hcz_step_f64": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
+    # f, g, mask, ws, out, ny, nx, consts, phi_mid, stream
+    "hcz_record_f32": [_VP] * 5 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
+    "hcz_record_f64": [_VP] * 5 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
     # f, g, fa, ga, fb, gb, phi, nz, ny, nx, n_steps, consts, stream
     "hcz3d_step_f32": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
     "hcz3d_step_f64": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],

@@ -16,6 +16,12 @@ Each call counts its steps and launches in the recorder of
 ``kernel.launches.hcz_step``; ``.halo`` after them for
 :func:`step_fused_halo`), so a run can show that its main path went through
 the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
+
+:func:`record_2d` is the drivers' energy and spike/bubble record of a state
+(:func:`..models.hcz.kinetic_energy` and :func:`..models.hcz.interface_heights`)
+from the same source's record kernel, one launch that leaves three numbers
+on the card; it counts as the family ``hcz_record`` (one step and one launch
+a record).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from ..utils.profiling import count_launches, span
 from . import _grid, _halo
 
 FAMILY = "hcz_step"
+RECORD_FAMILY = "hcz_record"
 # kernel launches a step
 LAUNCHES_PER_STEP = 1
 # rows of validity one step consumes: ∇(∇²φ) reads two rows away and the
@@ -173,3 +180,50 @@ def step_fused_halo(f_ext, g_ext, fluid_ext_f32, p: HCZParams, nsub: int = 1,
         raise ValueError(f"no kernel for device {f_ext.device}")
     out = _launch(f_ext, g_ext, fluid_ext_f32, p, nsub, halo_route=True)
     return tuple(_halo.interior(t, halo, 1) for t in out)
+
+
+def record_2d(f, g, fluid_f32, p: HCZParams, heights=False):
+    """The record of the state ``(f, g)``: a float64 tensor on its device,
+    ``[E]``, or ``[E, spike, bubble]`` with ``heights``.
+
+    ``E`` is :func:`..models.hcz.kinetic_energy` (½ Σ|u|² over the fluid
+    over ``fluid_f32.numel()``), and ``spike, bubble`` are
+    :func:`..models.hcz.interface_heights`: the largest y in [1, ny − 2]
+    with φ ≤ (φ_l + φ_g)/2 at x = nx/2 and at x = 0, or 0.  On a CUDA
+    tensor one launch of the record kernel (its sum in double, in a fixed
+    order), or raise; on a CPU tensor, and only there, the plain functions'
+    values.  Nothing is read to the host here.
+    """
+    check_state(f, g, 2, 9)
+    _check_mask(f, fluid_f32)
+    _, ny, nx = f.shape
+    if f.device.type == "cpu":
+        e = float(hcz.kinetic_energy((f, g), fluid_f32 > 0.5, p))
+        h = (hcz.interface_heights(hcz.order_parameter(f).numpy(), p)
+             if heights else ())
+        return torch.tensor([e, *h], dtype=torch.float64)
+    if f.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f.device}")
+    from . import _build
+
+    with span("kernel.prepare", family=RECORD_FAMILY, steps=1):
+        tiles = _grid.launch_geometry(ny, nx, TILE)
+        lib = _build.load()
+        run = (lib.hcz_record_f32 if f.dtype == torch.float32
+               else lib.hcz_record_f64)
+        consts = kernel_constants(p)
+        ws = torch.empty(2 * tiles[0] * tiles[1] + 1, dtype=torch.float64,
+                         device=f.device)
+        out = torch.empty(3, dtype=torch.float64, device=f.device)
+    with span("kernel.enqueue", family=RECORD_FAMILY, steps=1):
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            err = run(f.data_ptr(), g.data_ptr(), fluid_f32.data_ptr(),
+                      ws.data_ptr(), out.data_ptr(), ny, nx,
+                      ctypes.addressof(consts), 0.5 * (p.phi_l + p.phi_g),
+                      stream)
+    if err != 0:
+        raise RuntimeError("hcz_record launch failed: "
+                           + lib.sc_error_string(err).decode())
+    count_launches(RECORD_FAMILY, 1, 1)
+    return out if heights else out[:1]

@@ -249,10 +249,12 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=torch.float64, max_steps=None,
                               int_scalars=[("Flag", flag)])
         if drv.want_out(it):
             with drv.record(it):
-                e = drv.scalar(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+                # energy, spike (x = N/2) and bubble (x = 0) in one read
+                rec = drv.numpy(hcz_fused.record_2d(*state, fluid_f32, p,
+                                                    heights=True))
+                e = float(rec[0]) * dx * dx / (dt * dt)
                 drv.log_file("energy.dat").log(it * dt, e)
-                s, b = hcz.interface_heights(
-                    drv.numpy(hcz.order_parameter(state[0])), p)
+                s, b = int(rec[1]), int(rec[2])
                 drv.log_file("spike_bubble_position.dat").log(
                     it * dt, s * dx, b * dx)
                 # finite-difference interface velocities over the output
@@ -302,7 +304,8 @@ def run_two_layered_pf(config, outdir, dtype=torch.float64, max_steps=None,
                               int_scalars=[("Flag", flag)])
         if drv.want_out(it):
             with drv.record(it):
-                e = drv.scalar(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+                rec = drv.numpy(hcz_fused.record_2d(*state, fluid_f32, p))
+                e = float(rec[0]) * dx * dx / (dt * dt)
                 drv.log_file("energy.dat").log(it * dt, e)
                 rho = hcz.rho_of_phi(hcz.order_parameter(state[0]), p)
                 drv.log_file("density_probe.dat").log(

@@ -34,8 +34,11 @@ from multiphase_lbm_tpu.validation import rti_reference as jref
 from multiphase_lbm_tpu.validation import rti_regression as jrr
 from multiphase_lbm_tpu_torch.core import lattice as tlat
 from multiphase_lbm_tpu_torch.core import stencil as tst
+from multiphase_lbm_tpu_torch.io import config as tconfig
+from multiphase_lbm_tpu_torch.io.loggers import DatLogger
 from multiphase_lbm_tpu_torch.models import hcz as thcz
 from multiphase_lbm_tpu_torch.ops import _build, _grid, hcz_fused
+from multiphase_lbm_tpu_torch.runners import coolbm as tcoolbm
 from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
                                                     hcz_state_from_numpy)
 from multiphase_lbm_tpu_torch.validation import rti_reference as tref
@@ -298,6 +301,116 @@ def test_wrapper_mirrors_the_kernel_source():
             == ["ny", "nx", "n_steps"]
         assert _build.ENTRY_POINTS[name] == kinds
 
+
+
+def test_record_entries_mirror_the_kernel_source():
+    """The ctypes argument types of the record entries follow their
+    signatures (pointers as c_void_p, ints as c_int, φ_mid as c_double)."""
+    for name in ("hcz_record_f32", "hcz_record_f64"):
+        params = re.search(rf"int {name}\(([^)]*)\)", _HCZ_CU).group(1)
+        kinds = [ctypes.c_void_p if "*" in a else
+                 ctypes.c_double if a.split()[0] == "double" else ctypes.c_int
+                 for a in params.split(",")]
+        assert [a.split()[-1].lstrip("*") for a in params.split(",")][5:7] \
+            == ["ny", "nx"]
+        assert _build.ENTRY_POINTS[name] == kinds
+
+
+# ─── the record entry on the CPU ───────────────────────────────────────────
+def _record_case(case, dtype):
+    """(params, state, bool fluid) of a record case, after 7 plain steps."""
+    if case == "layers":
+        p = thcz.HCZParams(omega=1.25, kappa=0.001, gx=1e-4, Gx_const=1e-5)
+        fluid = thcz.geometry_channel(24, 20, device=CPU)
+        st = thcz.init_layers(24, 20, p, dtype=dtype, device=CPU)
+    else:
+        p = thcz.HCZParams(omega=1.96, gravity=-1e-5, kappa=0.01)
+        fluid = thcz.geometry_channel(24, 98, device=CPU)
+        if case == "rti_obstacle":
+            fluid[40:50, 5:9] = False
+        st = thcz.init_rayleigh_taylor(24, 98, p, dtype=dtype, device=CPU)
+    st = thcz.run(thcz.apply_geometry(st, fluid), fluid, p, 7)
+    return p, st, fluid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["rti", "rti_obstacle", "layers"])
+def test_record_2d_cpu_is_the_plain_diagnostics(case, dtype):
+    """On a CPU tensor ``record_2d`` gives exactly ``kinetic_energy`` and
+    ``interface_heights`` of the state (spike at nx/2, bubble at 0), in
+    float64, leaving the state as it was."""
+    p, (f, g), fluid = _record_case(case, dtype)
+    before = (f.clone(), g.clone())
+    fl32 = fluid.to(torch.float32)
+    phi = thcz.order_parameter(f).numpy()
+    e = float(thcz.kinetic_energy((f, g), fluid, p))
+    rec = hcz_fused.record_2d(f, g, fl32, p, heights=True)
+    assert rec.dtype == torch.float64 and rec.shape == (3,)
+    assert rec[0].item() == e
+    assert tuple(int(h) for h in rec[1:]) == thcz.interface_heights(phi, p)
+    assert hcz_fused.record_2d(f, g, fl32, p).tolist() == [e]
+    assert torch.equal(f, before[0]) and torch.equal(g, before[1])
+
+
+def test_record_2d_refuses_what_the_kernel_cannot_scan():
+    p, (f, g), fluid = _record_case("rti", torch.float32)
+    fl32 = fluid.to(torch.float32)
+    with pytest.raises(ValueError):                  # mask of another shape
+        hcz_fused.record_2d(f, g, fl32[:-1].contiguous(), p, heights=True)
+    with pytest.raises(ValueError):                  # a 3D state
+        hcz_fused.record_2d(f[..., None], g[..., None], fl32, p)
+    with pytest.raises(ValueError):                  # f and g differ
+        hcz_fused.record_2d(f, g.double(), fl32, p)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_rti_cli_records_are_the_plain_diagnostics_byte_for_byte(
+        f32, tmp_path, monkeypatch):
+    """The CPU ``rayleighTaylor2D`` CLI run (N = 16, 60 steps, a record
+    every 10) writes ``energy.dat``, ``spike_bubble_position.dat`` and
+    ``spike_bubble_velocity.dat`` byte for byte as the lines formed, as the
+    driver formed them before its record went through ``record_2d``, from
+    ``kinetic_energy`` and ``interface_heights`` of each recorded state."""
+    seen = []
+    real = hcz_fused.record_2d
+
+    def spy(f, g, fluid_f32, p, heights=False):
+        seen.append(((f.clone(), g.clone()), fluid_f32 > 0.5, p))
+        return real(f, g, fluid_f32, p, heights)
+
+    monkeypatch.setattr(hcz_fused, "record_2d", spy)
+    cfg = tmp_path / "rt.txt"
+    cfg.write_text((pathlib.Path(__file__).parent.parent / "configs" /
+                    "pf_rayleighTaylor2D.txt").read_text()
+                   + "\nN 16\nRe 11.52\nout_freq 10\nvtk_freq 0\n")
+    out = tmp_path / "out"
+    assert tcoolbm.main(["rayleighTaylor2D", "--config", str(cfg), "--outdir",
+                         str(out), "--steps", "60", "--device", "cpu"]
+                        + ["--f32"] * f32) == 0
+    assert len(seen) == 6
+    keys = tconfig.load_config(str(cfg))
+    _, _, dx, dt = tconfig.lb_parameters(float(keys["ulb"]), 16,
+                                         float(keys["Re"]))
+    want = tmp_path / "want"
+    want.mkdir()
+    logs = {n: DatLogger(want / n) for n in (
+        "energy.dat", "spike_bubble_position.dat", "spike_bubble_velocity.dat")}
+    prev = None
+    for it, (state, fluid, p) in zip(range(0, 60, 10), seen):
+        e = float(thcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
+        logs["energy.dat"].log(it * dt, e)
+        s, b = thcz.interface_heights(
+            thcz.order_parameter(state[0]).numpy(), p)
+        logs["spike_bubble_position.dat"].log(it * dt, s * dx, b * dx)
+        if prev is not None:
+            t_prev, s_prev, b_prev = prev
+            dti = it * dt - t_prev
+            logs["spike_bubble_velocity.dat"].log(
+                it * dt, (s * dx - s_prev) / dti, (b * dx - b_prev) / dti)
+        prev = (it * dt, s * dx, b * dx)
+    for name, lg in logs.items():
+        lg.close()
+        assert (out / name).read_bytes() == (want / name).read_bytes(), name
 
 # ─── physics on the port's plain path (tests/test_hcz.py:21-50) ────────────
 @functools.lru_cache(maxsize=None)

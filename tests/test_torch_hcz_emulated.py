@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from multiphase_lbm_tpu_torch.models import hcz
-from multiphase_lbm_tpu_torch.ops import _build, _halo, hcz_fused
+from multiphase_lbm_tpu_torch.ops import _build, _grid, _halo, hcz_fused
 from multiphase_lbm_tpu_torch.validation.rti_regression import rti_state
 
 # see tests/test_torch_hcz.py: six xdist workers' thread pools spin
@@ -52,6 +52,7 @@ STUB = r"""
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <thread>
 #include <vector>
@@ -122,11 +123,34 @@ inline int atomicAdd(int* p, int v) {
 inline int atomicOr(int* p, int v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// A warp shuffle: every thread of the block posts its value, then reads
+// the one delta lanes down within its warp of 32 (its own past the warp's
+// end).  Every thread of the block must call it, as every thread of a
+// warp must call the real one with a full mask.
+template <typename T>
+T __shfl_down_sync(unsigned, T v, unsigned delta) {
+  static T posted[1024];
+  const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y +
+                                                 blockDim.y * threadIdx.z);
+  posted[t] = v;
+  __syncthreads();
+  const T out = t % 32 + delta < 32 ? posted[t + delta] : v;
+  __syncthreads();
+  return out;
+}
 
 // One std::thread per thread of a block; each runs the kernel for every
 // block in turn and waits at the barrier after each, so the next block
@@ -201,7 +225,8 @@ def lib(tmp_path_factory):
                     "-I", str(d), "-o", str(so), str(d / "hcz_step.cpp")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("hcz_step_f32", "hcz_step_f64"):
+    for name in ("hcz_step_f32", "hcz_step_f64", "hcz_record_f32",
+                 "hcz_record_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _build.ENTRY_POINTS[name]
         fn.restype = ctypes.c_int
@@ -317,3 +342,76 @@ def test_entry_refuses_lattices_past_32_bit_indices(lib):
     for ny, nx in ((16384, 16384), (4096, 58255)):
         assert lib.hcz_step_f32(*[None] * 7, ny, nx, 1,
                                 ctypes.addressof(consts), None) == 1
+
+
+# ─── the record kernel (hcz_record_*) ──────────────────────────────────────
+def _record(lib, f, g, fluid, p):
+    """The record entry on CPU tensors, its workspace and output filled
+    with NaN first: ``[E, spike, bubble]``."""
+    run = lib.hcz_record_f64 if f.dtype == torch.float64 else lib.hcz_record_f32
+    _, ny, nx = f.shape
+    tiles = _grid.launch_geometry(ny, nx, hcz_fused.TILE)
+    ws = torch.full((2 * tiles[0] * tiles[1] + 1,), float("nan"),
+                    dtype=torch.float64)
+    out = torch.full((3,), float("nan"), dtype=torch.float64)
+    mask = fluid.to(torch.float32).contiguous()
+    consts = hcz_fused.kernel_constants(p)
+    err = run(f.data_ptr(), g.data_ptr(), mask.data_ptr(), ws.data_ptr(),
+              out.data_ptr(), ny, nx, ctypes.addressof(consts),
+              0.5 * (p.phi_l + p.phi_g), None)
+    assert err == 0
+    return out
+
+
+RECORD_CASES = dict(CASES)
+# a whole RTI channel whose interface crosses both scan columns
+RECORD_CASES["rti channel 40x66"] = lambda om: _channel(40, 66, om)
+
+
+def _driven_layers(omega):
+    """The layered channel 16 × 12 with both x drives (ρ·gx and Gx_const)."""
+    p = hcz.HCZParams(omega=omega, kappa=0.001, gx=1e-4, Gx_const=1e-5)
+    fluid = hcz.geometry_channel(16, 12, device=CPU)
+    st = hcz.init_layers(16, 12, p, dtype=torch.float64, device=CPU)
+    return p, hcz.apply_geometry(st, fluid), fluid
+
+
+RECORD_CASES["layers 16x12 driven"] = _driven_layers
+
+
+@pytest.mark.parametrize("n_steps", [0, 3])
+@pytest.mark.parametrize("omega", [1.25, 1.96])
+@pytest.mark.parametrize("case", sorted(RECORD_CASES))
+def test_emulated_record_matches_plain(lib, case, omega, n_steps):
+    """The record kernel's energy within 1e-12 of
+    :func:`..models.hcz.kinetic_energy` and its heights equal to
+    :func:`..models.hcz.interface_heights`' (through ``record_2d``'s CPU
+    path), at columns nx/2 and 0, in float64."""
+    p, st, fluid = RECORD_CASES[case](omega)
+    st = hcz.run(st, fluid, p, n_steps)
+    got = _record(lib, *st, fluid, p)
+    want = hcz_fused.record_2d(*st, fluid.to(torch.float32), p, heights=True)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-12, atol=0.0)
+    assert got[1:].tolist() == want[1:].tolist()
+
+
+def test_emulated_record_finds_the_interface_and_repeats_its_bits(lib):
+    """In the 40 × 66 RTI channel the heights are inside the lattice (not
+    0, not the top row); float32 within 1e-5 of the plain float32 energy;
+    the same state gives the same bits twice; a lattice past 32-bit
+    indices is refused (cudaErrorInvalidValue)."""
+    p, st, fluid = RECORD_CASES["rti channel 40x66"](1.25)
+    st32 = tuple(t.float() for t in hcz.run(st, fluid, p, 3))
+    got = _record(lib, *st32, fluid, p)
+    want = hcz_fused.record_2d(*st32, fluid.to(torch.float32), p,
+                               heights=True)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    assert got[1:].tolist() == want[1:].tolist()
+    assert all(0 < h < 64 for h in got[1:].tolist())
+    assert got[1] != got[2]
+    assert torch.equal(_record(lib, *st32, fluid, p), got)
+    consts = hcz_fused.kernel_constants(p)
+    out = torch.zeros(3, dtype=torch.float64)
+    assert lib.hcz_record_f32(*[None] * 4, out.data_ptr(), 16384, 16384,
+                              ctypes.addressof(consts), 0.1, None) == 1

@@ -20,7 +20,12 @@ entries make one C call a call.
 Tolerances: float32 over 5 steps rtol 3e-5, atol 3e-6 in 2D and rtol 5e-5,
 atol 5e-6 in 3D (summation order and FMA contraction differ from the plain
 path); float64 over 20 steps atol 1e-12, tight enough to separate an
-indexing fault from rounding.
+indexing fault from rounding.  The 2D record kernel (``record_2d``) on the
+same cases, from the initial state and after kernel steps (200 in the RTI
+channels), against ``kinetic_energy`` and ``interface_heights``: heights
+equal to the scan of φ summed in the kernel's order, and to the scan of
+``order_parameter``'s φ but where φ ties φ_mid within 4 ulp; energy rtol
+1e-5 in float32 and 1e-12 in float64.
 """
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ import torch
 from multiphase_lbm_tpu_torch.models import hcz
 from multiphase_lbm_tpu_torch.ops import hcz3d_fused, hcz_fused
 from multiphase_lbm_tpu_torch.runners import coolbm
+from multiphase_lbm_tpu_torch.runners.common import Driver
 from multiphase_lbm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
@@ -114,6 +120,97 @@ def test_launches_count_steps(cuda_device):
             before[0], before[1], before[2] + nsub, before[3] + nsub]
     torch.cuda.synchronize()
 
+
+RECORD_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+RECORD_CASES = [(case, steps) for case in ("rti", "rti_config_omega")
+                for steps in (0, 200)] + [
+    (case, steps) for case in ("layers", "rti_obstacle", "channel_45x37",
+                               "channel_3x5", "periodic_7x2",
+                               "obstacle_tile_edges")
+    for steps in (0, 20)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,steps", RECORD_CASES)
+def test_hcz_record_matches_plain(cuda_device, case, steps, dtype):
+    """``record_2d`` on the card: heights at nx/2 and 0 equal to
+    ``interface_heights`` of the same state, the energy within
+    ``RECORD_RTOL`` of ``kinetic_energy``; the same state gives the same
+    bits twice."""
+    p, st, fluid = _state_2d(case, dtype, cuda_device)
+    fl = fluid.to(torch.float32)
+    if steps:
+        st = hcz_fused.run_fused(*st, fl, p, steps)
+    cols = (st[0].shape[2] // 2, 0)
+    got = hcz_fused.record_2d(*st, fl, p, heights=True).cpu()
+    e = float(hcz.kinetic_energy(st, fluid, p))
+    assert e > 0.0
+    np.testing.assert_allclose(got[0].item(), e, rtol=RECORD_RTOL[dtype],
+                               atol=0.0)
+    # the heights: interface_heights' rule on φ summed as the kernel sums
+    # it (f_0 + f_1 + ... + f_8, in that order), exactly
+    phi_k = st[0][0].clone()
+    for k in range(1, 9):
+        phi_k += st[0][k]
+    heights = hcz.interface_heights(phi_k.cpu().numpy(), p)
+    assert (int(got[1]), int(got[2])) == heights
+    # order_parameter sums in another order; a height may differ from it
+    # only where φ ties φ_mid to rounding (an initial interface through a
+    # lattice row, as in the 45 × 37 channel at x = 0 and x = 22)
+    phi = hcz.order_parameter(st[0]).cpu().numpy()
+    mid = 0.5 * (p.phi_l + p.phi_g)
+    plain = hcz.interface_heights(phi, p)
+    for x, a, b in zip(cols, heights, plain):
+        if a != b:
+            row = phi[max(a, b), x]
+            assert abs(row - mid) <= 4 * np.spacing(row), (x, a, b, row)
+    again = hcz_fused.record_2d(*st, fl, p, heights=True).cpu()
+    assert torch.equal(again, got)
+    assert hcz_fused.record_2d(*st, fl, p).cpu().tolist() == [got[0].item()]
+
+
+def test_hcz_record_is_one_launch_and_a_small_read(cuda_device):
+    """A record read as the drivers read it: one ``kernel.steps`` and one
+    ``kernel.launches.hcz_record``, one kernel on the card
+    (``hcz_record_kernel``; the memset of its counter is no kernel) and at
+    most 64 ``d2h_bytes``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, st, fluid = _state_2d("rti", torch.float32, cuda_device)
+    fl = fluid.to(torch.float32)
+    hcz_fused.record_2d(*st, fl, p, heights=True)
+    torch.cuda.synchronize()
+    names = ("kernel.steps.hcz_record", "kernel.launches.hcz_record",
+             "d2h_bytes", "kernel.steps.hcz_step")
+    before = [profiling.counter(n) for n in names]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rec = Driver.numpy(hcz_fused.record_2d(*st, fl, p, heights=True))
+        torch.cuda.synchronize()
+    grown = [profiling.counter(n) - b for n, b in zip(names, before)]
+    assert grown[:2] == [1, 1] and 0 < grown[2] <= 64 and grown[3] == 0
+    assert rec.shape == (3,)
+    # the device's operations, less the program's ranges (mlbm.*)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memset", "Memcpy",
+                                          profiling.PREFIX))]
+    assert len(kernels) == 1 and "hcz_record_kernel" in kernels[0], kernels
+
+
+def test_rti_cli_records_through_the_record_kernel(cuda_device, tmp_path):
+    """The RTI and layered CLIs take each energy record from one record
+    launch: ``kernel.steps.hcz_record`` grows by the lines of
+    ``energy.dat``."""
+    for problem in ("rayleighTaylor2D", "twoLayeredFlow2D"):
+        before = profiling.counter("kernel.steps.hcz_record")
+        out = tmp_path / problem
+        assert coolbm.main([problem, "--f32", "--steps", "64", "--outdir",
+                            str(out)]) == 0
+        lines = (out / "energy.dat").read_text().splitlines()
+        assert lines and profiling.counter("kernel.steps.hcz_record") \
+            == before + len(lines)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("box", [(64, 64, 64), (37, 11, 9), (33, 9, 3)])

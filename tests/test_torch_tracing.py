@@ -103,10 +103,11 @@ def _rti_case(tmp_path):
     cfg = tmp_path / "rti.txt"
     cfg.write_text("N 16\nRe 20\nout_freq 4\nvtk_freq 8\n")
     n = 16 * (4 * 16 + 2)
-    # each record reads the energy and φ for the host's interface scan;
-    # each dump stages φ and the density (the Flag field is host data); the
-    # Flag is read once, as a bool mask, before the loop
-    reads = {"record": 8 + n * 8, "dump": 2 * n * 8}
+    # each record reads its energy and the spike and bubble heights, three
+    # float64 in one read (hcz_fused.record_2d); each dump stages φ and the
+    # density (the Flag field is host data); the Flag is read once, as a
+    # bool mask, before the loop
+    reads = {"record": 3 * 8, "dump": 2 * n * 8}
     return apps.run_rayleigh_taylor_pf, cfg, 16, reads, n
 
 
@@ -270,7 +271,8 @@ def test_launch_counter_matches_profiled_kernels(cuda_device, tmp_path, family,
                                                  driver, text, kernel):
     """The driver's run on the card: ``kernel.launches.<family>`` grows by
     the kernels of the family that the profiler sees, the wrapper's spans
-    carry the steps, and every record reads its diagnostics in ``wait``."""
+    carry the steps, the HCZ record enqueues its one kernel inside each
+    record, and every record reads its diagnostics in ``wait``."""
     from torch.autograd import DeviceType
 
     cfg = tmp_path / "case.txt"
@@ -292,10 +294,17 @@ def test_launch_counter_matches_profiled_kernels(cuda_device, tmp_path, family,
     assert profiling.counter(f"kernel.steps.{family}") == 40
     assert before >= 40 and steps_before >= 40
     spans = profiling.spans()
-    enq = [s for s in spans if s.name == "kernel.enqueue"]
+    enq = [s for s in spans if s.name == "kernel.enqueue"
+           and s.attrs["family"] == family]
     assert sum(s.attrs["steps"] for s in enq) == 40
-    assert all(s.attrs["family"] == family and s.parent.name == "chunk"
-               for s in enq)
-    assert len([s for s in spans if s.name == "kernel.prepare"]) == len(enq)
+    assert all(s.parent.name == "chunk" for s in enq)
+    assert len([s for s in spans if s.name == "kernel.prepare"
+                and s.attrs["family"] == family]) == len(enq)
+    # the HCZ driver's record: one launch of its own family in each record
+    records = [s for s in spans if s.name == "record"]
+    rec = [s for s in spans if s.name == "kernel.enqueue" and s not in enq]
+    assert all(s.attrs["family"] == "hcz_record" and s.parent.name == "record"
+               for s in rec)
+    assert len(rec) == (len(records) if family == "hcz_step" else 0)
     for r in (s for s in spans if s.name == "record"):
         assert any(s.name == "wait" and s.parent is r for s in spans)
