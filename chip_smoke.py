@@ -71,7 +71,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      --profile 20 in a process of its own: LAUNCHES_PER_STEP (2) B5
      launches a step, and their device time; then coolbm laplace3D
      --f32 --steps 200 (config N = 100) writes its files through
-     hcz3d_step.
+     hcz3d_step, and coolbm laplace3D --f32 at 64³, 300 steps, on the
+     card and with --device cpu: final states within 1e-4 of the largest
+     population, energy.dat within 2e-2.
  10. Fakhari main path — bench --model fakhari: the 2048² bubble float32
      through fakhari_step (slope 100/300) beside the plain path (2/6);
      state finite, Σφ drift < 1e-4 (summed in float64); the Laplace gate
@@ -926,6 +928,46 @@ def main():
     check(_steps(hcz3d_fused) > bench3d_launches,
           "the laplace3D CLI did not launch the kernel")
     hcz3d_launches = _steps(hcz3d_fused)
+    # the laplace3D CLI at 64³ float32 (Re 4.8: ω = 1.11), 300 steps with
+    # records every 100, on the card and on the CPU's plain path: final
+    # states within 1e-4 of the largest population (two float32 runs that
+    # round in another order), energy lines within 2e-2 (the spurious
+    # currents' energy is a cancellation; at 32³ a float32 run's stood
+    # 1.9e-3 off float64's), the same time column
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "l3.txt")
+        with open(coolbm.CONFIG_DIR / "pf_laplace3D.txt") as src, \
+                open(cfg, "w") as dst:
+            dst.write(src.read() + "\nN 64\nRe 4.8\nout_freq 100\nvtk_freq 0\n")
+        fn, cfg_name = coolbm.PROBLEMS["laplace3D"]
+        finals = {}
+
+        def keep(*args, **kw):
+            finals[kw["device"].type] = out = fn(*args, **kw)
+            return out
+        coolbm.PROBLEMS["laplace3D"] = (keep, cfg_name)
+        try:
+            for where in ("cuda", "cpu"):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = coolbm.main(["laplace3D", "--f32", "--config", cfg,
+                                      "--steps", "300", "--device", where,
+                                      "--outdir", os.path.join(tmp, where)])
+                check(rc == 0, f"coolbm laplace3D --device {where} returned {rc}")
+        finally:
+            coolbm.PROBLEMS["laplace3D"] = (fn, cfg_name)
+        l3_gap = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                     for a, b in zip(finals["cuda"], finals["cpu"]))
+        e = {}
+        for w in finals:
+            with open(os.path.join(tmp, w, "energy.dat")) as fh:
+                e[w] = [[float(x) for x in line.split()] for line in fh]
+        l3_e = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(e["cuda"], e["cpu"]))
+    say(f"[cli] laplace3D 64^3 f32, 300 steps, card against the CPU plain "
+        f"path: state {l3_gap:.3e} (<= 1e-4), energy {l3_e:.3e} (<= 2e-2)")
+    check(l3_gap <= 1e-4, f"laplace3D 64^3 state off the CPU plain path by {l3_gap}")
+    check(len(e["cuda"]) == len(e["cpu"]) == 3 and l3_e <= 2e-2
+          and [a[0] for a in e["cuda"]] == [b[0] for b in e["cpu"]],
+          f"laplace3D 64^3 energy.dat off the CPU plain path: {e}")
 
     # ---- 10. Fakhari main path: the 2048² bubble ----
     rec_fk_plain, rd, _ = bench.run(model="fakhari", steps=2, steps2=6,

@@ -38,6 +38,7 @@ from ..models import pulsatile as pb
 from ..models import shan_chen_rt as rt
 from ..ops import (combustion_fused, fakhari_fused, hcz3d_fused, hcz_fused,
                    pulsatile_fused, sc_fused, scrt_fused)
+from ..utils.profiling import count, span
 from .common import Driver, next_chunk
 
 
@@ -341,8 +342,12 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
                               scalars=[("phi", hcz.order_parameter(state[0]))])
         if drv.want_out(it):
             with drv.record(it):
-                e = drv.scalar(hcz.kinetic_energy(state, fluid, p, hcz.D3Q19,
-                                                  three_d=True))
+                # the plain energy: macro_3d's fields on the state's device,
+                # then one scalar read
+                with span("record.energy", family="hcz3d", path="plain"):
+                    e = drv.scalar(hcz.kinetic_energy(state, fluid, p,
+                                                      hcz.D3Q19, three_d=True))
+                    count("record.plain.hcz3d")
                 drv.log_file("energy.dat").log(it * dt, e)
         with drv.chunk(it):
             chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)

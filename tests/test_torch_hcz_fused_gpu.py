@@ -337,6 +337,46 @@ def test_cli_runs_through_the_kernels(cuda_device, tmp_path):
     assert (tmp_path / "l3" / "sol_0000000.vtk").exists()
 
 
+def test_laplace3d_cli_on_the_card_matches_the_cpu_plain_path(cuda_device,
+                                                              tmp_path,
+                                                              monkeypatch):
+    """``coolbm laplace3D --f32`` at 64³ (R = 16, Re 4.8: ω = 1.11), 300
+    steps with records every 100, on the card through B5 and with ``--device
+    cpu`` through the plain path.  The final states agree within 1e-4 of the
+    largest population: both are float32 runs that round in another order
+    (the kernel's sums and FMA contraction), and at 32³ a plain float32 run
+    stood 1.4e-5 of the largest off the float64 run after 300 steps.  The
+    energy lines agree within 2e-2 of their value: the energy of the
+    spurious currents is a cancellation of populations a thousand times
+    larger, and at 32³ a float32 run's energy stood 1.9e-3 off the float64
+    run's after 200–300 steps; the time column is the same number."""
+    cfg = tmp_path / "l3.txt"
+    cfg.write_text((coolbm.CONFIG_DIR / "pf_laplace3D.txt").read_text()
+                   + "\nN 64\nRe 4.8\nout_freq 100\nvtk_freq 0\n")
+    fn, name = coolbm.PROBLEMS["laplace3D"]
+    finals = {}
+
+    def keep(*args, **kw):
+        finals[kw["device"].type] = out = fn(*args, **kw)
+        return out
+    monkeypatch.setitem(coolbm.PROBLEMS, "laplace3D", (keep, name))
+    before = profiling.counter("kernel.steps.hcz3d_step")
+    for dev in ("cuda", "cpu"):
+        assert coolbm.main(["laplace3D", "--f32", "--config", str(cfg),
+                            "--steps", "300", "--device", dev,
+                            "--outdir", str(tmp_path / dev)]) == 0
+    assert profiling.counter("kernel.steps.hcz3d_step") - before == 300
+    for card, plain in zip(finals["cuda"], finals["cpu"]):
+        assert card.is_cuda and not plain.is_cuda
+        gap = float((card.cpu() - plain).abs().max() / plain.abs().max())
+        assert gap <= 1e-4, gap
+    lines = {dev: np.loadtxt(tmp_path / dev / "energy.dat") for dev in finals}
+    assert lines["cuda"].shape == lines["cpu"].shape == (3, 2)
+    np.testing.assert_array_equal(lines["cuda"][:, 0], lines["cpu"][:, 0])
+    np.testing.assert_allclose(lines["cuda"][:, 1], lines["cpu"][:, 1],
+                               rtol=2e-2, atol=0.0)
+
+
 def test_laplace_law_through_the_3d_kernel(cuda_device):
     """The 3D Young–Laplace gate of tests/test_hcz.py, through the kernel in
     float64: droplets of radius 6 and 9 in a 32³ box at κ = 5e-4 must give

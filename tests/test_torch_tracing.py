@@ -1,7 +1,8 @@
 """The port's own spans and counters (``utils/profiling``): the recorder,
 the driver loop's spans and bytes read to the host, the kernel wrappers'
-launch counters, the operator's ``--profile`` exporter and the benchmark's
-three per-layer metrics that read them.
+launch counters, the 3D droplet's ``record.energy`` span and
+``record.plain.hcz3d`` counter, the operator's ``--profile`` exporter and
+the benchmark's per-layer metrics that read them.
 
 The CPU tests run the plain path, which enqueues no kernel, so the
 ``kernel.*`` spans and launch counters are checked by the ``gpu`` tests
@@ -9,6 +10,7 @@ at the end, which skip without a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_tracing.py
 """
+import importlib
 import importlib.util
 import json
 import re
@@ -153,6 +155,39 @@ def test_driver_loop_spans_and_bytes_read(case, tmp_path):
     assert sum(s.attrs["bytes"] for s in waits) == n_rec * reads["record"]
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_laplace3d_record_energy_span_and_counter(device, tmp_path, request):
+    """A traced ``run_laplace3d``: one ``record.energy`` span a record,
+    inside the record, with the plain path's attributes and its read, and
+    ``record.plain.hcz3d`` counting the records; on the card the wrapper
+    counts two ``hcz3d_step`` launches a step."""
+    if device == "cuda":
+        request.getfixturevalue("cuda_device")
+    torch.set_num_threads(1)
+    cfg = tmp_path / "l3.txt"
+    cfg.write_text("N 12\nRe 0.9\nout_freq 4\nvtk_freq 0\n")
+    run = lambda: apps.run_laplace3d(  # noqa: E731
+        str(cfg), str(tmp_path / "out"), dtype=torch.float32, max_steps=10,
+        device=device)
+    run()                                   # on the card: builds the library
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    spans = profiling.spans()
+    records = [s for s in spans if s.name == "record"]
+    energy = [s for s in spans if s.name == "record.energy"]
+    assert [s.attrs["it"] for s in records] == [0, 4, 8]
+    assert [s.parent for s in energy] == records
+    assert all(s.attrs == {"family": "hcz3d", "path": "plain"} for s in energy)
+    assert all(any(w.name == "wait" and w.parent is s for w in spans)
+               for s in energy)
+    assert profiling.counter("record.plain.hcz3d") == len(records) == 3
+    events = [e for e in profiling.count_events() if e[1] == "record.plain.hcz3d"]
+    assert all(s.t0 <= t <= s.t1 for (t, _, _), s in zip(events, energy))
+    launches = profiling.counter("kernel.launches.hcz3d_step")
+    assert launches == (2 * 10 if device == "cuda" else 0)
+
+
 def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
     torch.set_num_threads(1)
     cfg = tmp_path / "sc.txt"
@@ -251,6 +286,44 @@ def test_metric_reads_a_synthetic_recorder(name, value):
     assert metric.read(_synthetic_run()) == pytest.approx(value, rel=1e-9)
     assert metric.read(SimpleNamespace(**dict(vars(_synthetic_run()),
                                               slice_bounds=None))) is None
+
+
+def test_record_device_ms_reads_kernels_outside_step_per_energy_span():
+    """The kernels launched outside the benchmark's ``step`` span, over the
+    ``record.energy`` spans that start in the slice (10 s to 20 s: two of
+    the three); nothing where the program records no such span."""
+    def s(name, t0, t1):
+        return SimpleNamespace(name=name, t0=t0, t1=t1, thread=1, attrs={},
+                               parent=None)
+    spans = [s("record", 11.0, 11.01), s("record.energy", 11.001, 11.009),
+             s("chunk", 11.01, 11.5), s("record", 12.0, 12.01),
+             s("record.energy", 12.001, 12.009), s("record", 25.0, 25.01),
+             s("record.energy", 25.001, 25.009)]
+    recorder = SimpleNamespace(spans=lambda: spans, count_events=lambda: [])
+    sliced = {"span_kernel_s": {"step": 0.66, "diagnostics": 0.03, "log": 0.002}}
+    run = SimpleNamespace(recorder=recorder, slice_bounds=(10.0, 20.0),
+                          slice=sliced)
+    metric = _metric("record_device_ms")
+    assert metric.read(run) == pytest.approx(16.0, rel=1e-12)
+    older = SimpleNamespace(spans=lambda: [x for x in spans if x.name != "record.energy"],
+                            count_events=lambda: [])
+    assert metric.read(SimpleNamespace(**dict(vars(run), recorder=older))) is None
+    assert metric.read(SimpleNamespace(**dict(vars(run), slice=None,
+                                              slice_bounds=None))) is None
+
+
+def test_roofline_of_the_3d_kernel_reads_its_bound():
+    """B5's share of its bound at 256³ float32: 304 B a cell over 3.35 TB/s
+    is 1.5224 ms a step, so 100 steps in 0.33 s of ``step`` kernels read
+    46.13%; another family's cell reads nothing."""
+    bench_harness = importlib.import_module("benchmark.harness")
+    spec = bench_harness.Spec(ROOT, "hcz_droplet3d.n256.out100")
+    run = SimpleNamespace(spec=spec, dtype="float32", nelem=256 ** 3,
+                          slice={"span_kernel_s": {"step": 0.33}, "steps": 100})
+    bound = 256 ** 3 * 304 / 3.35e12
+    assert _metric("roofline_pct.hcz3d_step").read(run) == pytest.approx(
+        100.0 * bound * 100 / 0.33, rel=1e-12)
+    assert _metric("roofline_pct.hcz_step").read(run) is None
 
 
 # ─── on the card ─────────────────────────────────────────────────────────
