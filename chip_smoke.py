@@ -35,7 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        not multiples of the kernel's 32×8 tile or 16-plane chunk (37×11×9)
        or thinner in z than its 7-plane φ window (33×9×3), float32 over 5
        steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps (atol
-       1e-12); and 128³ float32, 3 steps.
+       1e-12); 128³ float32, 3 steps; and the benchmark cell's 256³
+       droplet (ω = 1/0.98, the middle of its drawn Re), float32, 3 steps.
   4. SC main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
      periodic, through the kernel (slope protocol; and bench --profile 20
      in a process of its own: device ms a step and idle share), beside the
@@ -66,9 +67,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      spike_bubble_position.dat, spike_bubble_velocity.dat and its MLUPS
      line, through hcz_step, with one hcz_record launch a line of
      energy.dat.
-  9. 3D main path — bench --model hcz3d: 128³ float32 through hcz3d_step
-     (slope 50/150) beside the plain path (2/6), and bench --model hcz3d
-     --profile 20 in a process of its own: LAUNCHES_PER_STEP (2) B5
+  9. 3D main path — bench --model hcz3d --size 256: the 256³ droplet
+     float32 through hcz3d_step (slope 50/150) beside the plain path
+     (2/6), and bench --model hcz3d --size 256 --profile 20 in a process
+     of its own: LAUNCHES_PER_STEP (2) B5
      launches a step, and their device time; then coolbm laplace3D
      --f32 --steps 200 (config N = 100) writes its files through
      hcz3d_step, and coolbm laplace3D --f32 at 64³, 300 steps, on the
@@ -198,7 +200,7 @@ path (phases 4-5, 5b, 6-8, 9, 10, 11, 13, 14, 12); the halo routes count
 apart (``kernel.steps.<family>.halo``).  Then one JSON line with every kernel of
 the paths, the layered channel's sc_step and the six halo routes
 included (pulsatile_step's and hcz3d_step's entries also
-with their launches_per_step from the N = 384 and 128³ profiles), and, last,
+with their launches_per_step from the N = 384 and 256³ profiles), and, last,
 {"ok": true, "device": {...}}.
 """
 import concurrent.futures
@@ -600,8 +602,21 @@ def main():
     out = hcz3d_fused.run_fused_3d(*st, p3, 3)
     ref = hcz.run(st, hcz.geometry_periodic_3d(128, 128, 128, device=dev), p3,
                   3, lattice=hcz.D3Q19, three_d=True)
-    err_hcz3d = compare("hcz3d_step droplet 128^3 omega=1.2 float32 3 steps",
-                        out, ref, HCZ3D_F32_TOL, failures)
+    compare("hcz3d_step droplet 128^3 omega=1.2 float32 3 steps", out, ref,
+            HCZ3D_F32_TOL, failures)
+    del st, out, ref
+    # the droplet of the benchmark cell hcz_droplet3d.n256.out100, which
+    # run_laplace3d gives B5: 256³ float32, R = 64, κ 5e-4, u_lb 0.01 and Re
+    # 16, the middle of the cell's drawn range (ω = 1/0.98)
+    _, omega256, _, _ = bench.lb_parameters(0.01, 256, 16.0)
+    p256 = hcz.HCZParams(omega=omega256, kappa=5e-4)
+    st = hcz.init_droplet_3d(256, 256, 256, p256, dtype=torch.float32,
+                             device=dev)
+    out = hcz3d_fused.run_fused_3d(*st, p256, 3)
+    ref = hcz.run(st, hcz.geometry_periodic_3d(256, 256, 256, device=dev),
+                  p256, 3, lattice=hcz.D3Q19, three_d=True)
+    err_hcz3d = compare(f"hcz3d_step droplet 256^3 omega={omega256:.4g} "
+                        "float32 3 steps", out, ref, HCZ3D_F32_TOL, failures)
     del st, out, ref
 
     for tau in (0.8, 0.55):
@@ -884,21 +899,22 @@ def main():
     check(record_launches == n_records > 0,
           "the RTI CLI did not take each record from one hcz_record launch")
 
-    # ---- 9. 3D main path: the 128³ droplet and the laplace3D CLI ----
-    rec_3d_plain, rd, _ = bench.run(model="hcz3d", steps=2, steps2=6,
-                                    plain=True)
+    # ---- 9. 3D main path: the 256³ droplet and the laplace3D CLI ----
+    rec_3d_plain, rd, _ = bench.run(model="hcz3d", size=256, steps=2,
+                                    steps2=6, plain=True)
     say(f"[bench hcz3d plain] {json.dumps(rec_3d_plain)}")
     check(rd.valid, rec_3d_plain)
     del rd
     _zero(hcz3d_fused)           # count the 3D path's steps only
-    rec_3d, rd, st0 = bench.run(model="hcz3d", steps=50, steps2=150)
+    rec_3d, rd, st0 = bench.run(model="hcz3d", size=256, steps=50,
+                                steps2=150)
     say(f"[bench hcz3d kernel] {json.dumps(rec_3d)}")
     check(rd.valid, rec_3d)
     check(all(bool(torch.isfinite(t).all()) for t in rd.out),
           "non-finite 3D state")
     m0 = float(st0[0].double().sum())
     drift = abs(float(rd.out[0].double().sum()) - m0) / m0
-    say(f"[physics] 128^3 droplet phase-mass drift {drift:.3e} (< 1e-4)")
+    say(f"[physics] 256^3 droplet phase-mass drift {drift:.3e} (< 1e-4)")
     check(drift < 1e-4, f"3D phase-mass drift {drift}")
     bench3d_launches = _steps(hcz3d_fused)
     check(bench3d_launches > 0, "the 3D bench did not launch the kernel")
@@ -906,13 +922,14 @@ def main():
     # B5's launches a step, from a profile in a process of its own (see
     # phase 4)
     res = subprocess.run([sys.executable, "-m", "multiphase_lbm_tpu_torch.bench",
-                          "--model", "hcz3d", "--profile", "20"],
+                          "--model", "hcz3d", "--size", "256",
+                          "--profile", "20"],
                          capture_output=True, text=True, timeout=600,
                          check=True,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
     rec_3d_prof = json.loads(res.stdout.strip().splitlines()[-1])
     prof = rec_3d_prof["profile"]
-    say(f"[profile] hcz3d 128^3 (bench --model hcz3d --profile 20, "
+    say(f"[profile] hcz3d 256^3 (bench --model hcz3d --size 256 --profile 20, "
         f"{rec_3d_prof['ms_per_step']:.5f} ms a step by its slope): " + ", ".join(
         f"{kernel_name(k['name'])} {k['ms_per_step']:.5f} ms "
         f"({k['calls_per_step']:g} a step)" for k in prof["kernels"])
@@ -1467,7 +1484,7 @@ def main():
         entry("hcz3d_step", "hcz3d_step.cu",
               "multiphase_lbm_tpu/ops/pallas_hcz3d.py:39",
               hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain,
-              per_cell(hcz3d_fused, 128 ** 3))
+              per_cell(hcz3d_fused, 256 ** 3))
         | {"launches_per_step": hcz3d_per_step},
         entry("fakhari_step", "fakhari_step.cu",
               "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,

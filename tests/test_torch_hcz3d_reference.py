@@ -7,7 +7,8 @@ its step against the port's plain path (``hcz3d_fused.run_fused_3d`` on a
 CPU tensor) over 10 steps, and the ``energy.dat`` that ``run_laplace3d``
 writes against its records, within 1e-12 of the column's largest value
 (both sum in another order; the energy's velocities are a cancellation of
-populations a thousand times larger, which leaves about 1e-14 of it).  The benchmark's
+populations a thousand times larger, which leaves about 1e-14 of it), and
+the ``sol_*.vtk`` dumps it writes against the reference's rendering.  The benchmark's
 references must import neither JAX nor the program they check.
 """
 import importlib.util
@@ -88,6 +89,29 @@ def test_driver_energy_matches_reference_records(tmp_path):
             assert abs(lines[i][col] - row[col]) <= 1e-12 * scale
     assert not list((tmp_path / "out").glob("*.vtk"))
     assert REF.dump_count(prm, steps) == 0
+
+
+def test_driver_dumps_match_reference_vtk_tokens(tmp_path):
+    """``sol_*.vtk`` as the driver writes it at vtk_freq 100, under the
+    reference's ``dump_name``, against the reference's ``vtk_tokens`` of
+    its own states: every compared token equal, and as many dumps as
+    ``dump_count`` gives."""
+    N, Re, steps = 12, 0.9, 250
+    case = tmp_path / "case.txt"
+    case.write_text((CONFIGS / "hcz_droplet3d.txt").read_text()
+                    + f"\nN {N}\nRe {Re}\nout_freq 100\nvtk_freq 100\n")
+    out = tmp_path / "out"
+    apps.run_laplace3d(str(case), str(out), dtype=torch.float64,
+                       max_steps=steps, device="cpu")
+    prm = REF.params({"N": N, "Re": Re, "out_freq": 100, "vtk_freq": 100})
+    _, _, state = _setup(N, Re)
+    assert len(list(out.glob("*.vtk"))) == REF.dump_count(prm, steps) == 3
+    for it in range(0, steps, prm["vtk_freq"]):
+        want, counted = REF.vtk_tokens(state, prm, it)
+        got = (out / REF.dump_name(it)).read_text().split()
+        assert len(got) == len(want) and sum(counted) > len(want) // 2
+        assert [a for a, b, c in zip(got, want, counted) if c and a != b] == []
+        state = REF.step(state, prm, prm["vtk_freq"])
 
 
 @pytest.mark.parametrize("name", ["sc_droplet_ref", "hcz_rti_ref", "hcz_droplet3d_ref"])
