@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build    — nvcc builds csrc/*.cu, one process per source, all started
                 together; prints the seconds and the ptxas report (registers
                 and spills of every kernel), and the registers and spills of
-                sc_step_kernel's four instantiations in float32 and float64.
+                sc_step_kernel's four instantiations in float32 and float64
+                and of B5's and its record's kernels; B5's machine code
+                (cuobjdump -sass) must equal B5_SASS's digests where the
+                nvcc release is the one they were recorded with.
   3. kernel vs plain on the card:
      sc_step — ω = 1.25 (τ = 0.8) so the rank-2 MRT term is live:
        {periodic 256², walled 256×128 with ρ_w = 0.2 and the droplet on the
@@ -37,6 +40,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        steps (rtol 5e-5, atol 5e-6) and float64 over 20 steps (atol
        1e-12); 128³ float32, 3 steps; and the benchmark cell's 256³
        droplet (ω = 1/0.98, the middle of its drawn Re), float32, 3 steps.
+     hcz3d_record — the 3D record (hcz3d_fused.record_3d: the φ pass and
+       the record tile) of the state those 3 steps left, against
+       kinetic_energy(three_d=True) (rtol 1e-5), and its time (CUDA events
+       over 100 calls) beside the plain record's (3 calls).
   4. SC main path — multiphase_lbm_tpu_torch.bench at 2048², MRT, float32,
      periodic, through the kernel (slope protocol; and bench --profile 20
      in a process of its own: device ms a step and idle share), beside the
@@ -73,7 +80,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of its own: LAUNCHES_PER_STEP (2) B5
      launches a step, and their device time; then coolbm laplace3D
      --f32 --steps 200 (config N = 100) writes its files through
-     hcz3d_step, and coolbm laplace3D --f32 at 64³, 300 steps, on the
+     hcz3d_step, with RECORD_LAUNCHES (2) hcz3d_record launches a line of
+     energy.dat, and coolbm laplace3D --f32 at 64³, 300 steps, on the
      card and with --device cpu: final states within 1e-4 of the largest
      population, energy.dat within 2e-2.
  10. Fakhari main path — bench --model fakhari: the 2048² bubble float32
@@ -289,13 +297,33 @@ def bound(work, flop_rate=F32_FLOP_PER_S):
 # the 8 moving g (u needs no g_0), 72 B; its operations, a subset of the
 # step's, at most the step's 600
 RECORD_WORK_PER_CELL = (72, 600)
+# The 3D record's work a cell in float32 (csrc/hcz3d_step.cu): the φ pass's
+# 19 f in and φ out, then the record tile's 19 g and φ in, 160 B; about 200
+# operations (φ, ∇²φ, ∇∇²φ, Σ c g, F, u and |u|²)
+RECORD3D_WORK_PER_CELL = (160, 200)
 
 # the kernel of csrc/sc_step.cu (B1)
 SC_KERNELS = ("sc_step_kernel",)
 # the kernels of csrc/combustion_step.cu (B7)
 CB_KERNELS = ("boundary_kernel", "fields_kernel", "collide_stream_kernel")
-# the kernels of csrc/hcz3d_step.cu (B5)
+# the kernels of csrc/hcz3d_step.cu (B5), and its record kernel
 B5_KERNELS = ("phi_kernel", "tile_kernel")
+B5_RECORD_KERNELS = ("hcz3d_record_kernel",)
+# SHA-256 of B5's machine code (sass_digests) as it stood before the 3D
+# record kernel joined its source, built with the nvcc release named here:
+# the record must leave B5's code as it was.  A change to B5 itself
+# records its own digests here.
+B5_SASS = {
+    "nvcc": "release 12.9, V12.9.86",
+    "phi_kernel<float>":
+        "948b520d1e08dd3cfd3211b3abbe94ab6cde094f684740dad6eea79e137e1143",
+    "phi_kernel<double>":
+        "b61970e5175c3a58fb42c253470202af2b3587235684d1de6c289f8962350d37",
+    "tile_kernel<float>":
+        "36b7f72b5c7a4d0847d922e884e64850e017fda3cc23cee5596867d77d83a254",
+    "tile_kernel<double>":
+        "f764841993f21038ba03abbc45ee0f4d41363b260130d2ddd24e89f97cc90b44",
+}
 # the kernels of csrc/pulsatile_step.cu (B6); the last one serves checks
 PB_KERNELS = ("links_kernel", "tile_kernel", "tail_kernel",
               "reseed_scatter_kernel", "fresh_map_kernel")
@@ -330,6 +358,44 @@ def ptxas_report(log, source, kernels):
     return rows
 
 
+def nvcc_release():
+    """The ``release …`` words of ``nvcc --version``."""
+    from multiphase_lbm_tpu_torch.ops import _build
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    m = re.search(r"release [^\n]*", out)
+    return m.group(0).strip() if m else out.strip().splitlines()[-1]
+
+
+def sass_digests(lib_path, source, kernels):
+    """``{kernel<type>: SHA-256}`` of the instruction words (the ``/* 0x… */``
+    encodings of ``cuobjdump -sass``, in order) of each entry function of
+    ``kernels`` compiled from the source ``source`` (the stem its mangled
+    name carries) in the library: the names, the anonymous namespace's hash
+    and the listing's padding do not enter."""
+    import hashlib
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=600, check=True).stdout
+    digests, name, words = {}, None, []
+    for line in out.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name:
+                digests[name] = hashlib.sha256(
+                    " ".join(words).encode()).hexdigest()
+            k = re.search(r"(" + "|".join(kernels) + r")I([fd])E",
+                          m.group(1))
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>"
+                    if k and source in m.group(1) else None)
+            words = []
+        elif name:
+            words += re.findall(r"/\* (0x[0-9a-f]{16}) \*/", line)
+    return digests
+
+
 def kernel_name(name):
     """The short name of a profiler kernel name: ``collide_stream_kernel<float>``
     or the last scope of a library kernel's name."""
@@ -339,6 +405,20 @@ def kernel_name(name):
 
 def say(msg):
     print(msg, flush=True)
+
+
+def event_ms(fn, calls):
+    """Device ms a call of ``fn`` by CUDA events over ``calls`` calls, after
+    one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(calls):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / calls
 
 
 def check(cond, msg):
@@ -451,9 +531,24 @@ def main():
         say(f"[build] {name} (<type, periodic, const_g>): {regs} registers, "
             f"spill stores {stores} B, spill loads {loads} B")
     for name, regs, stores, loads in ptxas_report(
-            _build.build_log, "hcz3d_step", B5_KERNELS):
+            _build.build_log, "hcz3d_step", B5_KERNELS + B5_RECORD_KERNELS):
         say(f"[build] {name} (hcz3d_step): {regs} registers, spill stores "
             f"{stores} B, spill loads {loads} B")
+    # B5's machine code against the digests recorded before the record
+    # kernel joined its source
+    release = nvcc_release()
+    b5_sass = sass_digests(_build.LIB_PATH, "hcz3d_step", B5_KERNELS)
+    say(f"[build] B5 SASS ({release}): " + ", ".join(
+        f"{k} {v[:16]}" for k, v in sorted(b5_sass.items())))
+    check(len(b5_sass) == 4, f"B5's four kernels not found: {sorted(b5_sass)}")
+    if release == B5_SASS["nvcc"]:
+        same = all(b5_sass[k] == B5_SASS[k] for k in b5_sass)
+        say(f"[build] B5 SASS {'unchanged' if same else 'CHANGED'} against "
+            "the digests recorded before the 3D record kernel")
+        check(same, "B5's machine code changed")
+    else:
+        say(f"[build] B5 SASS not compared: its digests were recorded with "
+            f"nvcc {B5_SASS['nvcc']}")
 
     # ---- 3. kernels against their plain versions ----
     failures = []
@@ -617,7 +712,36 @@ def main():
                   p256, 3, lattice=hcz.D3Q19, three_d=True)
     err_hcz3d = compare(f"hcz3d_step droplet 256^3 omega={omega256:.4g} "
                         "float32 3 steps", out, ref, HCZ3D_F32_TOL, failures)
-    del st, out, ref
+    del st, ref
+    # the 3D record (hcz3d_fused.record_3d: the φ pass and the record tile)
+    # of the state B5 left, against the plain kinetic_energy, and its time
+    # (CUDA events over 100 calls) beside the plain record's (3 calls)
+    fluid256 = hcz.geometry_periodic_3d(256, 256, 256, device=dev)
+
+    def record3d_kernel():
+        return hcz3d_fused.record_3d(*out, p256)
+
+    def record3d_plain():
+        return hcz.kinetic_energy(out, fluid256, p256, hcz.D3Q19,
+                                  three_d=True)
+
+    e_k, e_p = record3d_kernel().item(), float(record3d_plain())
+    err_rec3d = abs(e_k - e_p)
+    ok = e_p > 0.0 and err_rec3d <= 1e-5 * e_p
+    say(f"[kernel vs plain] hcz3d_record droplet 256^3 float32 after 3 steps: "
+        f"energy {e_k:.9e} vs {e_p:.9e} (abs err {err_rec3d:.3e}, rtol 1e-5) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("hcz3d_record droplet 256^3")
+    ms_rec3d = event_ms(record3d_kernel, 100)
+    ms_rec3d_plain = event_ms(record3d_plain, 3)
+    per_record3d = tuple(256 ** 3 * v for v in RECORD3D_WORK_PER_CELL)
+    bound_rec3d, _ = bound(per_record3d)
+    say(f"[main path] hcz3d_record 256^3 float32: kernel {ms_rec3d:.4f} ms a "
+        f"record, its two launches ({100 * bound_rec3d / ms_rec3d:.1f}% of "
+        f"their {bound_rec3d:.4f} ms bound) vs plain {ms_rec3d_plain:.2f} ms, "
+        f"on {card}")
+    del out, fluid256
 
     for tau in (0.8, 0.55):
         pf = fk.FakhariParams(tau=tau)
@@ -845,19 +969,6 @@ def main():
           f"record energy {got[0].item()} vs plain {e_p}")
     check(h_k == h_p, f"record heights {h_k} vs plain {h_p}")
 
-    def event_ms(fn, calls):
-        """Device ms a call of ``fn`` by CUDA events over ``calls`` calls,
-        after one warm call."""
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(calls):
-            fn()
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) / calls
-
     ms_record = event_ms(record_kernel, 100)
     ms_record_plain = event_ms(record_plain, 3)
     per_record = tuple(2048 * 8194 * v for v in RECORD_WORK_PER_CELL)
@@ -940,10 +1051,21 @@ def main():
     check(hcz3d_per_step == hcz3d_fused.LAUNCHES_PER_STEP,
           f"hcz3d_step launched {hcz3d_per_step} kernels a step, not "
           f"{hcz3d_fused.LAUNCHES_PER_STEP}")
-    run_cli(coolbm, ["laplace3D", "--f32", "--steps", "200"],
-            ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"))
+    record3d_before = profiling.counter("kernel.launches.hcz3d_record")
+    with tempfile.TemporaryDirectory() as l3_out:
+        run_cli(coolbm, ["laplace3D", "--f32", "--steps", "200"],
+                ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat"),
+                outdir=l3_out)
+        with open(os.path.join(l3_out, "energy.dat")) as fh:
+            n_records3d = len(fh.read().splitlines())
     check(_steps(hcz3d_fused) > bench3d_launches,
           "the laplace3D CLI did not launch the kernel")
+    record3d_launches = (profiling.counter("kernel.launches.hcz3d_record")
+                         - record3d_before)
+    say(f"[cli] laplace3D: {record3d_launches} hcz3d_record launches for "
+        f"{n_records3d} records")
+    check(record3d_launches == hcz3d_fused.RECORD_LAUNCHES * n_records3d > 0,
+          "the laplace3D CLI did not take each record from the record kernel")
     hcz3d_launches = _steps(hcz3d_fused)
     # the laplace3D CLI at 64³ float32 (Re 4.8: ω = 1.11), 300 steps with
     # records every 100, on the card and on the CPU's plain path: final
@@ -1486,6 +1608,11 @@ def main():
               hcz3d_launches, err_hcz3d, rec_3d, rec_3d_plain,
               per_cell(hcz3d_fused, 256 ** 3))
         | {"launches_per_step": hcz3d_per_step},
+        # the 3D record kernel (and the φ pass) in place of kinetic_energy
+        entry("hcz3d_record", "hcz3d_step.cu",
+              "multiphase_lbm_tpu/models/hcz.py:323", record3d_launches,
+              err_rec3d, {"ms_per_step": ms_rec3d},
+              {"ms_per_step": ms_rec3d_plain}, per_record3d),
         entry("fakhari_step", "fakhari_step.cu",
               "multiphase_lbm_tpu/ops/pallas_fakhari.py:124", fakhari_launches,
               err_fakhari, rec_fk, rec_fk_plain, per_cell(fakhari_fused, n * n)),

@@ -54,13 +54,23 @@
 // values go through one code path wherever it sits in a tile or chunk, so a
 // z-slab of the decomposition computes bit for bit what the whole lattice
 // computes.  Indices are 32-bit: the wrapper (ops/_grid.launch_geometry_3d)
-// and run_steps refuse 19 · nz · ny · nx >= 2^31.
+// and the C entries (box_grid) refuse 19 · nz · ny · nx >= 2^31.
 // DRAM traffic: 80 B a cell in A, 308 B in B (f, g and φ in; f and g out):
 // about 388 B against the 304 B bound; the ring's g and φ re-reads are L2
 // hits.  A memory-only copy of launch B (the same loads, windows and
 // pushes, no physics) runs no faster than launch B: its access pattern,
 // not its arithmetic, sets its time.  run_steps loops the steps on the caller's stream, ping-ponging two
 // buffer pairs, so a call costs one host crossing.
+//
+// The record (hcz3d_record_kernel, the C entries hcz3d_record_*): the
+// laplace3D driver's energy ½ Σ|u|² / (nz·ny·nx) of one state, which the
+// plain path takes from models/hcz.macro_3d's whole-box fields.  Two
+// launches: the step's phi_kernel, unchanged, then one record tile over the
+// step's grid that forms u exactly as phase X of tile_kernel does, with a
+// smaller reach (u needs φ two cells away and the own cell's g), and sums
+// |u|² in double in a fixed order; the host reads back one double.  Bound:
+// 160 B a cell in float32 (the φ pass's 76 B in and 4 B out; the record
+// tile's 76 B of g and 4 B of φ, the ring's φ re-reads L2 hits).
 #include <cuda_runtime.h>
 
 // Model constants, filled by multiphase_lbm_tpu_torch/ops/hcz_fused.py
@@ -84,6 +94,7 @@ constexpr int AX = TILE_X + 6, AY = TILE_Y + 6, A_N = AX * AY;
 constexpr int BX = TILE_X + 4, BY = TILE_Y + 4, B_N = BX * BY;
 constexpr int CX = TILE_X + 2, CY = TILE_Y + 2, C_N = CX * CY;
 constexpr int A_ROUNDS = (A_N + THREADS - 1) / THREADS;
+constexpr int B_ROUNDS = (B_N + THREADS - 1) / THREADS;
 constexpr int C_ROUNDS = (C_N + THREADS - 1) / THREADS;
 
 // D3Q19 ordering of the phase-field 3D module
@@ -381,19 +392,191 @@ tile_kernel(const T* __restrict__ f, const T* __restrict__ g,
   }
 }
 
+// Sum of e over the block in a fixed order: the shuffle tree within each
+// warp, then the warps in turn, on thread 0 (the other threads keep partial
+// values).  Every thread of the block must call it.
+__device__ __forceinline__ double block_sum(double e, double* s_e, int tid) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) e += __shfl_down_sync(0xffffffffu, e, o);
+  if (tid % 32 == 0) s_e[tid / 32] = e;
+  __syncthreads();
+  if (tid == 0)
+    for (int w = 1; w < THREADS / 32; ++w) e += s_e[w];
+  return e;
+}
+
+// The energy record of one state (what models/hcz.kinetic_energy computes
+// from it with three_d=True over the fully periodic box), from φ = Σf (the
+// step's phi_kernel) and g, over the step's grid: a block owns a TILE_X ×
+// TILE_Y tile and marches up its chunk of ZC z-planes.  At plane t, after
+// φ of plane t + 2 has joined a 4-plane window over the tile plus 2 (the B
+// box) and ∇²φ of plane t + 1 a 3-plane window over the tile plus 1 (the C
+// box), each cell of the tile forms
+//   u = (Σ c g + F/6)/(ρ/3),  F = κφ∇∇²φ + (0, gravity ρ, 0),
+// with phase X's arithmetic, and adds |u|² in double; its 19 g are loaded
+// at the plane's start, before the barriers.  Each block leaves its sum in
+// part; the last block to finish (a counter the entry zeroes) sums the
+// parts, each thread a fixed strided subset, then block_sum's tree, and
+// writes out[0] = ½ Σ|u|² / (nz·ny·nx).  No float atomics: the same state
+// gives the same bits.
 template <typename T>
-int run_steps(const T* f, const T* g, T* fa, T* ga, T* fb, T* gb, T* phi,
-              int nz, int ny, int nx, int n_steps, const HCZConst3* c,
-              cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS)
+hcz3d_record_kernel(const T* __restrict__ g, const T* __restrict__ phi,
+                    int nz, int ny, int nx, HCZConst3 c,
+                    double* __restrict__ part, unsigned* __restrict__ done,
+                    double* __restrict__ out) {
+  __shared__ T s_phi[4][B_N];
+  __shared__ T s_lap[3][C_N];
+  __shared__ double s_e[THREADS / 32];
+  __shared__ bool s_last;
+
+  const int plane = ny * nx, n = nz * plane;
+  const int tid = threadIdx.x;
+  const int tx = tid % TILE_X, ty = tid / TILE_X;
+  const int x0 = blockIdx.x * TILE_X, y0 = blockIdx.y * TILE_Y;
+  const int z0 = blockIdx.z * ZC;
+  const int z_end = z0 + ZC < nz ? z0 + ZC : nz;
+  const bool active = x0 + tx < nx && y0 + ty < ny;
+  // slots of plane p in the 4-plane φ window (p >= z0 − 2) and the 3-plane
+  // ∇²φ window (p >= z0 − 1)
+  auto sa = [z0](int p) { return (p - z0 + 8) & 3; };
+  auto sb = [z0](int p) { return (p - z0 + 6) % 3; };
+
+  // in-plane offsets of this thread's cells of the B box
+  int offB[B_ROUNDS];
+#pragma unroll
+  for (int i = 0; i < B_ROUNDS; ++i) {
+    const int r = tid + i * THREADS;
+    const int by = r / BX, bx = r - by * BX;
+    offB[i] = wrap(y0 + by - 2, ny) * nx + wrap(x0 + bx - 2, nx);
+  }
+  const int own = wrap(y0 + ty, ny) * nx + wrap(x0 + tx, nx);
+  const int hb = (ty + 2) * BX + tx + 2;   // the own cell in the B box
+  const int hc = (ty + 1) * CX + tx + 1;   // and in the C box
+
+  // ---- prologue: φ of planes z0 − 2 and z0 − 1 ----
+  for (int p = z0 - 2; p < z0; ++p) {
+    const int base = wrap(p, nz) * plane;
+#pragma unroll
+    for (int i = 0; i < B_ROUNDS; ++i)
+      if (tid + i * THREADS < B_N)
+        s_phi[sa(p)][tid + i * THREADS] = phi[base + offB[i]];
+  }
+
+  double e = 0.0;
+  for (int t = z0 - 2; t < z_end; ++t) {
+    const bool own_plane = t >= z0 && active;
+    T gk[19];
+    if (own_plane) {
+#pragma unroll
+      for (int k = 0; k < 19; ++k) gk[k] = g[k * n + t * plane + own];
+    }
+    {
+      const int base = wrap(t + 2, nz) * plane;
+#pragma unroll
+      for (int i = 0; i < B_ROUNDS; ++i)
+        if (tid + i * THREADS < B_N)
+          s_phi[sa(t + 2)][tid + i * THREADS] = phi[base + offB[i]];
+    }
+    __syncthreads();
+
+    // ∇²φ of plane t + 1 over the C box, once a cell
+    {
+      const T* lo = s_phi[sa(t)];
+      const T* md = s_phi[sa(t + 1)];
+      const T* hi = s_phi[sa(t + 2)];
+      for (int r = tid; r < C_N; r += THREADS) {
+        const int ry = r / CX, rx = r - ry * CX;
+        const int h = (ry + 1) * BX + rx + 1;
+        const T pc = md[h];
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < 19; ++k) {
+          if (k == 9) continue;
+          const int o = h + cy(k) * BX + cx(k);
+          const T v = cz(k) < 0 ? lo[o] : (cz(k) > 0 ? hi[o] : md[o]);
+          acc += T(wk(k)) * (v - pc);
+        }
+        s_lap[sb(t + 1)][r] = T(6) * acc;
+      }
+    }
+    __syncthreads();
+
+    // ---- the own cell of plane t ----
+    if (own_plane) {
+      const T* lp_lo = s_lap[sb(t - 1)];
+      const T* lp_md = s_lap[sb(t)];
+      const T* lp_hi = s_lap[sb(t + 1)];
+      T momx = T(0), momy = T(0), momz = T(0);
+#pragma unroll
+      for (int k = 0; k < 19; ++k) {
+        if (cx(k)) momx += T(cx(k)) * gk[k];
+        if (cy(k)) momy += T(cy(k)) * gk[k];
+        if (cz(k)) momz += T(cz(k)) * gk[k];
+      }
+      T lx = T(0), ly = T(0), lz = T(0);
+#pragma unroll
+      for (int k = 0; k < 19; ++k) {
+        if (k == 9) continue;
+        const int o = hc + cy(k) * CX + cx(k);
+        const T lp = cz(k) < 0 ? lp_lo[o] : (cz(k) > 0 ? lp_hi[o] : lp_md[o]);
+        if (cx(k)) lx += T(wk(k) * cx(k)) * lp;
+        if (cy(k)) ly += T(wk(k) * cy(k)) * lp;
+        if (cz(k)) lz += T(wk(k) * cz(k)) * lp;
+      }
+      const T ph = s_phi[sa(t)][hb];
+      const T rho = rho_of_phi(ph, c);
+      const T kphi = T(c.kappa) * ph;
+      const T Fx = kphi * (T(3) * lx);
+      const T Fy = kphi * (T(3) * ly) + T(c.gravity) * rho;
+      const T Fz = kphi * (T(3) * lz);
+      const T rho3 = rho * T(1.0 / 3.0);
+      const double ux = (momx + Fx * T(1.0 / 6.0)) / rho3;
+      const double uy = (momy + Fy * T(1.0 / 6.0)) / rho3;
+      const double uz = (momz + Fz * T(1.0 / 6.0)) / rho3;
+      e += ux * ux + uy * uy + uz * uz;
+    }
+  }
+
+  // ---- the block's part, then the last block's fixed-order total ----
+  e = block_sum(e, s_e, tid);
+  const int nb = gridDim.x * gridDim.y * gridDim.z;
+  if (tid == 0) {
+    part[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = e;
+    __threadfence();
+    s_last = atomicAdd(done, 1u) == (unsigned)nb - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  e = 0.0;
+  for (int b = tid; b < nb; b += THREADS) e += __ldcg(&part[b]);
+  e = block_sum(e, s_e, tid);
+  if (tid == 0) out[0] = 0.5 * e / ((double)nz * ny * nx);
+}
+
+// The launch grid of a box (one block a tile and chunk), or false for a box
+// the kernels cannot index: 19 · nz · ny · nx >= 2^31 slots, or more than
+// 65,535 tile rows or chunks.
+bool box_grid(int nz, int ny, int nx, dim3* grid) {
   const long long tiles_y = (ny + TILE_Y - 1) / TILE_Y;
   const long long chunks = (nz + ZC - 1) / ZC;
   if (nz < 1 || ny < 1 || nx < 1 ||
       19LL * nz * ny * nx >= (1LL << 31) || tiles_y > 65535 ||
       chunks > 65535)
-    return (int)cudaErrorInvalidValue;
+    return false;
+  *grid = dim3((unsigned)((nx + TILE_X - 1) / TILE_X), (unsigned)tiles_y,
+               (unsigned)chunks);
+  return true;
+}
+
+template <typename T>
+int run_steps(const T* f, const T* g, T* fa, T* ga, T* fb, T* gb, T* phi,
+              int nz, int ny, int nx, int n_steps, const HCZConst3* c,
+              cudaStream_t stream) {
+  dim3 grid;
+  if (!box_grid(nz, ny, nx, &grid)) return (int)cudaErrorInvalidValue;
   const int n = nz * ny * nx;
-  const dim3 grid((unsigned)((nx + TILE_X - 1) / TILE_X), (unsigned)tiles_y,
-                  (unsigned)chunks);
   const unsigned phi_blocks = (unsigned)((n + 255) / 256);
   for (int s = 0; s < n_steps; ++s) {
     const T* src_f = s == 0 ? f : ((s & 1) ? fa : fb);
@@ -409,6 +592,28 @@ int run_steps(const T* f, const T* g, T* fa, T* ga, T* fb, T* gb, T* phi,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The record's launches: the φ pass, then the record tile.  The workspace
+// ws, blocks + 1 doubles, holds part (a double a block) and the counter,
+// which is zeroed first.
+template <typename T>
+int run_record(const T* f, const T* g, T* phi, double* ws, double* out,
+               int nz, int ny, int nx, const HCZConst3* c,
+               cudaStream_t stream) {
+  dim3 grid;
+  if (!box_grid(nz, ny, nx, &grid)) return (int)cudaErrorInvalidValue;
+  const int n = nz * ny * nx;
+  const long long nb = (long long)grid.x * grid.y * grid.z;
+  unsigned* done = (unsigned*)(ws + nb);
+  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  phi_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(f, phi, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hcz3d_record_kernel<T><<<grid, THREADS, 0, stream>>>(g, phi, nz, ny, nx,
+                                                       *c, ws, done, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -438,6 +643,28 @@ int hcz3d_step_f64(const void* f, const void* g, void* fa, void* ga,
                            (double*)ga, (double*)fb, (double*)gb,
                            (double*)phi, nz, ny, nx, n_steps,
                            (const HCZConst3*)consts, (cudaStream_t)stream);
+}
+
+// The energy record of the state (f, g), each (19, nz, ny, nx), which are
+// only read: out (1 double) = [½ Σ|u|² / (nz·ny·nx)].  phi is an
+// (nz, ny, nx) scratch; ws holds ⌈nz/16⌉ · ⌈ny/8⌉ · ⌈nx/32⌉ + 1 doubles of
+// workspace (one a block, and the counter).  One memset and two launches on
+// the stream; returns the cudaError_t of the first that failed
+// (cudaErrorInvalidValue, launching nothing, for a box the step refuses).
+int hcz3d_record_f32(const void* f, const void* g, void* phi, void* ws,
+                     void* out, int nz, int ny, int nx, const void* consts,
+                     void* stream) {
+  return run_record<float>((const float*)f, (const float*)g, (float*)phi,
+                           (double*)ws, (double*)out, nz, ny, nx,
+                           (const HCZConst3*)consts, (cudaStream_t)stream);
+}
+
+int hcz3d_record_f64(const void* f, const void* g, void* phi, void* ws,
+                     void* out, int nz, int ny, int nx, const void* consts,
+                     void* stream) {
+  return run_record<double>((const double*)f, (const double*)g, (double*)phi,
+                            (double*)ws, (double*)out, nz, ny, nx,
+                            (const HCZConst3*)consts, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -42,6 +42,9 @@ ENTRY_POINTS = {
     # f, g, fa, ga, fb, gb, phi, nz, ny, nx, n_steps, consts, stream
     "hcz3d_step_f32": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
     "hcz3d_step_f64": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
+    # f, g, phi, ws, out, nz, ny, nx, consts, stream
+    "hcz3d_record_f32": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
+    "hcz3d_record_f64": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
     # h, g, u, ho, go, uo, phi, ny, nx, fresh_phi, consts, stream
     "fakhari_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
     "fakhari_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],

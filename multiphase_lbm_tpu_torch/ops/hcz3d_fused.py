@@ -18,10 +18,17 @@ Each call counts its steps and launches in the recorder of
 ``kernel.launches.hcz3d_step``, ``LAUNCHES_PER_STEP`` a step; ``.halo``
 after them for :func:`step_fused_halo_3d`) and records the
 ``kernel.prepare`` and ``kernel.enqueue`` spans.
+
+:func:`record_3d` is the laplace3D driver's energy record of a state
+(:func:`..models.hcz.kinetic_energy` with ``three_d=True``) from the same
+source's φ pass and record tile, two launches that leave one number on the
+card; it counts as the family ``hcz3d_record`` (one step and
+``RECORD_LAUNCHES`` launches a record).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,6 +39,7 @@ from . import _grid, _halo
 from .hcz_fused import check_state, kernel_constants
 
 FAMILY = "hcz3d_step"
+RECORD_FAMILY = "hcz3d_record"
 # z-planes of validity one step consumes.  f needs 3: u reads ∇(∇²φ), two
 # planes of φ away, and the pull streaming one more.  g needs one more: its
 # forcing reads E = ∇(P − ρ/3), and P one plane away reads that u.  So
@@ -50,6 +58,8 @@ TILE = (8, 32)
 ZC = 16
 # kernel launches a step: the φ pass and the tile
 LAUNCHES_PER_STEP = 2
+# kernel launches a record: the φ pass and the record tile
+RECORD_LAUNCHES = 2
 
 
 def run_fused_3d(f, g, p: HCZParams, n_steps: int):
@@ -135,3 +145,47 @@ def step_fused_halo_3d(f_ext, g_ext, p: HCZParams, nsub: int = 1, halo=None):
         raise ValueError(f"no kernel for device {f_ext.device}")
     out = _launch(f_ext, g_ext, p, nsub, halo_route=True)
     return tuple(_halo.interior(t, halo, 1) for t in out)
+
+
+def record_3d(f, g, p: HCZParams):
+    """The energy record of the state ``(f, g)``: a float64 tensor ``[E]``
+    on its device.
+
+    ``E`` is :func:`..models.hcz.kinetic_energy` with ``three_d=True`` over
+    the fully periodic box (½ Σ|u|² over ``nz·ny·nx``).  On a CUDA tensor
+    the step's φ pass and one launch of the record tile, which forms u as
+    the step does and sums |u|² in double in a fixed order, or raise; on a
+    CPU tensor, and only there, the plain value.  Nothing is read to the
+    host here.
+    """
+    check_state(f, g, 3, 19)
+    if f.device.type == "cpu":
+        fluid = torch.ones(f.shape[1:], dtype=torch.bool)
+        e = hcz.kinetic_energy((f, g), fluid, p, hcz.D3Q19, three_d=True)
+        return e.to(torch.float64).reshape(1)
+    if f.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f.device}")
+    from . import _build
+
+    with span("kernel.prepare", family=RECORD_FAMILY, steps=1):
+        _, nz, ny, nx = f.shape
+        grid = _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
+        lib = _build.load()
+        run = (lib.hcz3d_record_f32 if f.dtype == torch.float32
+               else lib.hcz3d_record_f64)
+        consts = kernel_constants(p)
+        phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
+        ws = torch.empty(math.prod(grid) + 1, dtype=torch.float64,
+                         device=f.device)
+        out = torch.empty(1, dtype=torch.float64, device=f.device)
+    with span("kernel.enqueue", family=RECORD_FAMILY, steps=1):
+        with torch.cuda.device(f.device):
+            stream = torch.cuda.current_stream(f.device).cuda_stream
+            err = run(f.data_ptr(), g.data_ptr(), phi.data_ptr(),
+                      ws.data_ptr(), out.data_ptr(), nz, ny, nx,
+                      ctypes.addressof(consts), stream)
+    if err != 0:
+        raise RuntimeError("hcz3d_record launch failed: "
+                           + lib.sc_error_string(err).decode())
+    count_launches(RECORD_FAMILY, 1, RECORD_LAUNCHES)
+    return out

@@ -330,7 +330,6 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
                                       _num(cfg, "Re", 6.0))
     p = _hcz_params(cfg, omega, 5e-4, gravity=_num(cfg, "gravity", 0.0))
     state = hcz.init_droplet_3d(N, N, N, p, dtype=dtype, device=device)
-    fluid = hcz.geometry_periodic_3d(N, N, N, device=device)
     steps = max_steps or int(_num(cfg, "max_t", 5.0) / dt)
     drv = Driver(outdir, N ** 3, out_freq=_int(cfg, "out_freq", 100),
                  vtk_freq=_int(cfg, "vtk_freq", 100))
@@ -342,12 +341,14 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
                               scalars=[("phi", hcz.order_parameter(state[0]))])
         if drv.want_out(it):
             with drv.record(it):
-                # the plain energy: macro_3d's fields on the state's device,
-                # then one scalar read
-                with span("record.energy", family="hcz3d", path="plain"):
-                    e = drv.scalar(hcz.kinetic_energy(state, fluid, p,
-                                                      hcz.D3Q19, three_d=True))
-                    count("record.plain.hcz3d")
+                # the energy: the record kernel on the card (the plain
+                # macro_3d fields on the CPU), then one scalar read
+                on_card = state[0].is_cuda
+                with span("record.energy", family="hcz3d",
+                          path="kernel" if on_card else "plain"):
+                    e = drv.scalar(hcz3d_fused.record_3d(*state, p))
+                    if not on_card:
+                        count("record.plain.hcz3d")
                 drv.log_file("energy.dat").log(it * dt, e)
         with drv.chunk(it):
             chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)

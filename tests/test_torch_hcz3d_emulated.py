@@ -20,8 +20,13 @@ and 1.96; one float32 case at the port's 3D tolerance (rtol 5e-5, atol
 5e-6).  The halo entry's route on z-slabs, some thinner than a chunk, must
 equal, bit for bit, the same planes of the whole box's run in either type
 (with the halo of ``hcz3d_fused.REACH``, 4 planes a step: 3 would miss
-g's); the entry refuses 19·nz·ny·nx >= 2^31.  Skips only where ``g++`` is
-absent.
+g's); the entry refuses 19·nz·ny·nx >= 2^31.  The record entry
+(``hcz3d_record_*``: the φ pass and the record tile) on the same boxes,
+from the droplet and after 2 plain steps at either ω, within rtol 1e-12 of
+:func:`..models.hcz.kinetic_energy` with ``three_d=True`` in float64 and
+rtol 5e-5 in float32, with its workspace and output filled with NaN first;
+it repeats its bits and refuses what the step refuses.  Skips only where
+``g++`` is absent.
 """
 import ctypes
 import re
@@ -59,7 +64,8 @@ def lib(tmp_path_factory):
                     "-I", str(d), "-o", str(so), str(d / "hcz3d_step.cpp")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("hcz3d_step_f32", "hcz3d_step_f64"):
+    for name in ("hcz3d_step_f32", "hcz3d_step_f64", "hcz3d_record_f32",
+                 "hcz3d_record_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _build.ENTRY_POINTS[name]
         fn.restype = ctypes.c_int
@@ -187,18 +193,95 @@ def test_launch_geometry_3d_refuses_what_the_kernel_cannot_index(nz, ny, nx):
         _grid.launch_geometry_3d(nz, ny, nx, hcz3d_fused.TILE, hcz3d_fused.ZC)
 
 
-def test_wrapper_mirrors_the_kernel_source():
+@pytest.mark.parametrize("name,ints", [
+    ("hcz3d_step_f32", (7, ["nz", "ny", "nx", "n_steps"])),
+    ("hcz3d_step_f64", (7, ["nz", "ny", "nx", "n_steps"])),
+    ("hcz3d_record_f32", (5, ["nz", "ny", "nx"])),
+    ("hcz3d_record_f64", (5, ["nz", "ny", "nx"])),
+])
+def test_wrapper_mirrors_the_kernel_source(name, ints):
     """``TILE`` and ``ZC`` are the source's, and the ctypes argument types
-    of both C entries follow their signatures (pointers as c_void_p, ints,
-    n_steps among them, as c_int)."""
+    of each C entry follow its signature (pointers as c_void_p, ints, the
+    box's extents among them, as c_int)."""
     m = re.search(r"constexpr int TILE_X = (\d+), TILE_Y = (\d+), ZC = (\d+);",
                   _HCZ3D_CU)
     assert (int(m.group(2)), int(m.group(1))) == hcz3d_fused.TILE
     assert int(m.group(3)) == hcz3d_fused.ZC
-    for name in ("hcz3d_step_f32", "hcz3d_step_f64"):
-        params = re.search(rf"int {name}\(([^)]*)\)", _HCZ3D_CU).group(1)
-        kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
-                 for a in params.split(",")]
-        assert [a.split()[-1].lstrip("*") for a in params.split(",")][7:11] \
-            == ["nz", "ny", "nx", "n_steps"]
-        assert _build.ENTRY_POINTS[name] == kinds
+    params = re.search(rf"int {name}\(([^)]*)\)", _HCZ3D_CU).group(1)
+    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
+             for a in params.split(",")]
+    first, names = ints
+    assert [a.split()[-1].lstrip("*") for a in params.split(",")][
+        first:first + len(names)] == names
+    assert _build.ENTRY_POINTS[name] == kinds
+
+
+# ─── the record entry (hcz3d_record_*) ──────────────────────────────────────
+def _record(lib, f, g, p):
+    """The record entry on CPU tensors, its φ scratch, workspace and output
+    filled with NaN first: ``[E]``."""
+    run = (lib.hcz3d_record_f64 if f.dtype == torch.float64
+           else lib.hcz3d_record_f32)
+    _, nz, ny, nx = f.shape
+    grid = _grid.launch_geometry_3d(nz, ny, nx, hcz3d_fused.TILE,
+                                    hcz3d_fused.ZC)
+    phi = torch.full(f.shape[1:], float("nan"), dtype=f.dtype)
+    ws = torch.full((grid[0] * grid[1] * grid[2] + 1,), float("nan"),
+                    dtype=torch.float64)
+    out = torch.full((1,), float("nan"), dtype=torch.float64)
+    consts = hcz_fused.kernel_constants(p)
+    f_in, g_in = f.clone(), g.clone()
+    err = run(f.data_ptr(), g.data_ptr(), phi.data_ptr(), ws.data_ptr(),
+              out.data_ptr(), nz, ny, nx, ctypes.addressof(consts), None)
+    assert err == 0
+    assert torch.equal(f, f_in) and torch.equal(g, g_in)   # inputs only read
+    return out
+
+
+def _plain_energy(f, g, p):
+    fluid = torch.ones(f.shape[1:], dtype=torch.bool)
+    return float(hcz.kinetic_energy((f, g), fluid, p, hcz.D3Q19,
+                                    three_d=True))
+
+
+@pytest.mark.parametrize("n_steps", [0, 2])
+@pytest.mark.parametrize("omega", [1.2, 1.96])
+@pytest.mark.parametrize("box", sorted(BOXES))
+def test_emulated_record_matches_plain(lib, box, omega, n_steps):
+    """The record's energy within rtol 1e-12 of the plain float64 energy of
+    the noisy droplet with gravity, as it starts and after 2 plain steps."""
+    p, f, g = _droplet(*BOXES[box], omega)
+    f, g = _plain(f, g, p, n_steps)
+    got = _record(lib, f, g, p)
+    want = _plain_energy(f, g, p)
+    assert want > 0.0 and bool(torch.isfinite(got).all())
+    assert got.item() == pytest.approx(want, rel=1e-12, abs=0.0)
+
+
+def test_emulated_record_float32_repeats_its_bits_and_refuses(lib):
+    """The float32 instantiation within rtol 5e-5 of the plain float32
+    energy (the port's HCZ 3D float32 tolerance) on the two-chunk box; the
+    same state gives the same bits twice; a box past 32-bit indices is
+    refused (cudaErrorInvalidValue) and nothing is touched."""
+    p, f, g = _droplet(33, 9, 20, 1.2, dtype=torch.float32)
+    f, g = _plain(f, g, p, 2)
+    got = _record(lib, f, g, p)
+    assert got.item() == pytest.approx(_plain_energy(f, g, p), rel=5e-5,
+                                       abs=0.0)
+    assert torch.equal(_record(lib, f, g, p), got)
+    consts = hcz_fused.kernel_constants(p)
+    for nz, ny, nx in ((512, 512, 512), (1, 1, 113025456)):
+        assert lib.hcz3d_record_f32(*[None] * 5, nz, ny, nx,
+                                    ctypes.addressof(consts), None) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_record_3d_on_the_cpu_is_the_plain_energy(dtype):
+    """``record_3d`` on CPU tensors: a float64 ``[E]`` holding
+    ``kinetic_energy``'s value, bit for bit."""
+    p, f, g = _droplet(7, 5, 4, 1.2, dtype=dtype)
+    got = hcz3d_fused.record_3d(f, g, p)
+    fluid = torch.ones(f.shape[1:], dtype=torch.bool)
+    want = hcz.kinetic_energy((f, g), fluid, p, hcz.D3Q19, three_d=True)
+    assert got.dtype == torch.float64 and got.shape == (1,)
+    assert got.item() == float(want)

@@ -25,7 +25,10 @@ same cases, from the initial state and after kernel steps (200 in the RTI
 channels), against ``kinetic_energy`` and ``interface_heights``: heights
 equal to the scan of φ summed in the kernel's order, and to the scan of
 ``order_parameter``'s φ but where φ ties φ_mid within 4 ulp; energy rtol
-1e-5 in float32 and 1e-12 in float64.
+1e-5 in float32 and 1e-12 in float64.  The 3D record (``record_3d``) on
+the 64³ droplet, from the initial state and after 20 kernel steps, against
+``kinetic_energy(three_d=True)`` at the same tolerances: two launches and
+an 8-byte read.
 """
 import numpy as np
 import pytest
@@ -286,9 +289,67 @@ def test_hcz3d_refuses_boxes_past_32_bit_indices(cuda_device):
     before = profiling.counter("kernel.steps.hcz3d_step")
     with pytest.raises(ValueError, match="2\\^31"):
         hcz3d_fused.run_fused_3d(f, f, p, 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        hcz3d_fused.record_3d(f, f, p)
     assert torch.cuda.memory_allocated() == allocated
     assert profiling.counter("kernel.steps.hcz3d_step") == before
     del f
+
+
+RECORD3_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [0, 20])
+def test_hcz3d_record_matches_plain(cuda_device, steps, dtype):
+    """``record_3d`` on the card: the 64³ droplet with gravity at ω = 1.2,
+    as it starts and after 20 kernel steps, within ``RECORD3_RTOL`` of
+    ``kinetic_energy(three_d=True)`` of the same state; a float64 ``[E]``
+    on the card; the same state gives the same bits twice."""
+    p = hcz.HCZParams(omega=1.2, kappa=5e-4, gravity=-1e-6)
+    st = hcz.init_droplet_3d(64, 64, 64, p, dtype=dtype, device=cuda_device)
+    if steps:
+        st = hcz3d_fused.run_fused_3d(*st, p, steps)
+    fluid = hcz.geometry_periodic_3d(64, 64, 64, device=cuda_device)
+    got = hcz3d_fused.record_3d(*st, p)
+    assert got.is_cuda and got.dtype == torch.float64 and got.shape == (1,)
+    e = float(hcz.kinetic_energy(st, fluid, p, hcz.D3Q19, three_d=True))
+    assert e > 0.0
+    np.testing.assert_allclose(got.item(), e, rtol=RECORD3_RTOL[dtype],
+                               atol=0.0)
+    assert torch.equal(hcz3d_fused.record_3d(*st, p), got)
+
+
+def test_hcz3d_record_is_two_launches_and_a_small_read(cuda_device):
+    """A record read as ``run_laplace3d`` reads it: one ``kernel.steps``
+    and two ``kernel.launches.hcz3d_record``, exactly ``phi_kernel`` and
+    ``hcz3d_record_kernel`` on the card (the memset of its counter is no
+    kernel) and an 8-byte read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = hcz.HCZParams(omega=1.2, kappa=5e-4)
+    st = hcz.init_droplet_3d(64, 64, 64, p, device=cuda_device)
+    hcz3d_fused.record_3d(*st, p)
+    torch.cuda.synchronize()
+    names = ("kernel.steps.hcz3d_record", "kernel.launches.hcz3d_record",
+             "d2h_bytes", "kernel.steps.hcz3d_step")
+    before = [profiling.counter(n) for n in names]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        energy = Driver.scalar(hcz3d_fused.record_3d(*st, p))
+        torch.cuda.synchronize()
+    grown = [profiling.counter(n) - b for n, b in zip(names, before)]
+    assert grown == [1, 2, 8, 0] and energy > 0.0
+    # the device's operations, less the program's ranges (mlbm.*)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memset", "Memcpy",
+                                          profiling.PREFIX))]
+    # the profiler lists events in no fixed order
+    assert len(kernels) == 2, kernels
+    assert sum("phi_kernel" in k for k in kernels) == 1, kernels
+    assert sum("hcz3d_record_kernel" in k for k in kernels) == 1, kernels
 
 
 def test_kernels_leave_input_untouched(cuda_device):
