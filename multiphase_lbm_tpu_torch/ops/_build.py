@@ -9,6 +9,10 @@ and one more ``nvcc`` links the objects.  The library links no PyTorch
 headers, so a build takes seconds (a ``torch.utils.cpp_extension`` build
 takes minutes).  Nothing here runs at import time: the CPU-only tests
 import every module of the package.
+
+:func:`enqueue` is the one way the kernel wrappers (``ops/*_fused.py``) call
+the library: the ``kernel.enqueue`` span, the tensor's device, the symbol
+of its dtype, the current stream, the error check and the launch counters.
 """
 from __future__ import annotations
 
@@ -19,6 +23,10 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
+from ..utils.profiling import count_launches, span
+
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -27,42 +35,37 @@ LIB_PATH = BUILD_DIR / "libmlbm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C entry point -> argument types; every pointer and the stream as c_void_p
+# C entry point stem -> argument types, alike for its ``_f32`` and ``_f64``
+# entries; every pointer and the stream (the last) as c_void_p
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
-ENTRY_POINTS = {
+_SIGNATURES = {
     # f, a, b, mask, ny, nx, periodic, n_steps, consts, stream
-    "sc_step_f32": [_VP] * 4 + [_I32] * 4 + [_VP, _VP],
-    "sc_step_f64": [_VP] * 4 + [_I32] * 4 + [_VP, _VP],
+    "sc_step": [_VP] * 4 + [_I32] * 4 + [_VP, _VP],
     # f, g, fa, ga, fb, gb, mask, ny, nx, n_steps, consts, stream
-    "hcz_step_f32": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
-    "hcz_step_f64": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
+    "hcz_step": [_VP] * 7 + [_I32] * 3 + [_VP, _VP],
     # f, g, mask, ws, out, ny, nx, consts, phi_mid, stream
-    "hcz_record_f32": [_VP] * 5 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
-    "hcz_record_f64": [_VP] * 5 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
+    "hcz_record": [_VP] * 5 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
     # f, g, fa, ga, fb, gb, phi, nz, ny, nx, n_steps, consts, stream
-    "hcz3d_step_f32": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
-    "hcz3d_step_f64": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
+    "hcz3d_step": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
     # f, g, phi, ws, out, nz, ny, nx, consts, stream
-    "hcz3d_record_f32": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
-    "hcz3d_record_f64": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
+    "hcz3d_record": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
     # h, g, u, ho, go, uo, phi, ny, nx, fresh_phi, consts, stream
-    "fakhari_step_f32": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
-    "fakhari_step_f64": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    "fakhari_step": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
     # f, out, psi, ny, nx, consts, stream
-    "scrt_step_f32": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
-    "scrt_step_f64": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
+    "scrt_step": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
     # gc, gs, mac, yr, then gc, gs, mac, yr of buffer sets a and b, bz_idx,
     # bz_val, rs_idx, rs_val, ctr, ny, nx, cap, n_steps, t0, consts, stream
-    "pulsatile_run_f32": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],
-    "pulsatile_run_f64": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],
+    "pulsatile_run": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],
     # yr, yr_new, map, ny, nx, consts, stream
-    "pulsatile_fresh_map_f32": [_VP] * 3 + [_I32] * 2 + [_VP, _VP],
-    "pulsatile_fresh_map_f64": [_VP] * 3 + [_I32] * 2 + [_VP, _VP],
+    "pulsatile_fresh_map": [_VP] * 3 + [_I32] * 2 + [_VP, _VP],
     # a, b, flags, ckn, fs_col, fs_row, fld, side, ny, nx, row0, ny_glob,
     # n_steps, first_mode, consts, stream
-    "combustion_run_f32": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],
-    "combustion_run_f64": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],
+    "combustion_run": [_VP] * 8 + [_I32] * 6 + [_VP, _VP],
 }
+# C entry point -> argument types
+ENTRY_POINTS = {f"{stem}_{kind}": argtypes
+                for stem, argtypes in _SIGNATURES.items()
+                for kind in ("f32", "f64")}
 
 # extra nvcc flags of one source: the pulsatile kernel rounds every multiply
 # and add on its own, as the plain path does (see its header note)
@@ -153,3 +156,35 @@ def load() -> ctypes.CDLL:
     lib.sc_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def enqueue(family: str, entry: str, like: torch.Tensor, steps: int,
+            launches: int, calls, halo: bool = False):
+    """Call the C entry ``<entry>_f32`` or ``<entry>_f64`` (by ``like``'s
+    dtype) once for each argument tuple of ``calls``, with the current
+    stream of ``like``'s CUDA device appended::
+
+        enqueue(FAMILY, "sc_step", f, n, n * LAUNCHES_PER_STEP,
+                [(f.data_ptr(), ..., ctypes.addressof(consts))])
+
+    The calls run inside the ``kernel.enqueue`` span (``family``,
+    ``steps``), with ``like``'s device current: the library's runtime
+    launches into the context current on the calling thread.  A call that
+    returns an error raises ``RuntimeError``; when all have returned 0,
+    ``steps`` and ``launches`` are counted under ``family`` (``.halo``
+    after it for the halo-in entries; :func:`..utils.profiling.
+    count_launches`).  ``calls`` may be a generator: a wrapper that loops
+    its steps in Python forms each step's arguments as the loop reaches
+    it."""
+    with span("kernel.enqueue", family=family, steps=steps), \
+            torch.cuda.device(like.device):
+        lib = load()
+        fn = getattr(lib, entry + ("_f32" if like.dtype == torch.float32
+                                   else "_f64"))
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        for args in calls:
+            err = fn(*args, stream)
+            if err != 0:
+                raise RuntimeError(f"{entry} launch failed: "
+                                   + lib.sc_error_string(err).decode())
+    count_launches(family, steps, launches, halo)

@@ -45,11 +45,12 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _halo
+from . import _build, _halo
+from ._checks import check_tensors, on_card
 from ..models import combustion as cbm
 from ..models.combustion import (C, M_MAT, Q, W, CombustionParams,
                                  CombustionState)
-from ..utils.profiling import count_launches, span
+from ..utils.profiling import span
 
 FAMILY = "combustion_step"
 
@@ -440,27 +441,8 @@ def _check_fields(named, ny: int, nx: int):
     ``(9, ny, nx)`` (``(ny, nx)`` for q_heat)."""
     if 8 * Q * ny * nx >= 2 ** 31:
         raise ValueError(f"{ny} x {nx} is too large for 32-bit indices")
-    first = named[0][1]
-    if not isinstance(first, torch.Tensor):
-        raise TypeError(f"{named[0][0]} must be a torch tensor")
-    dtype, device = first.dtype, first.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{named[0][0]} must be float32 or float64, got "
-                        f"{dtype}")
-    for name, t in named:
-        shape = (ny, nx) if name == "q_heat" else (Q, ny, nx)
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch tensor")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, {named[0][0]} on "
-                             f"{device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(*((name, t, (ny, nx) if name == "q_heat" else (Q, ny, nx))
+                    for name, t in named))
 
 
 def check_state(state, p: CombustionParams):
@@ -530,19 +512,12 @@ def run_fused(state: CombustionState, p: CombustionParams, n_steps: int,
     ``first_step`` and ``all_first_steps``)."""
     check_params(p)
     check_state(state, p)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    device = state.f.device
-    if device.type == "cpu":
+    if not on_card(state.f, n_steps):
         return _plain(state, p, n_steps, konv, first_step, all_first_steps)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-
-    dtype = state.f.dtype
-    key = (p, str(device), dtype)
+    key = (p, str(state.f.device), state.f.dtype)
     if key not in _TABLES:
         _TABLES.clear()
-        _TABLES[key] = kernel_tables(p, device, dtype)
+        _TABLES[key] = kernel_tables(p, state.f.device, state.f.dtype)
     mode = 2 if all_first_steps else (1 if first_step else 0)
     out = _launch(state[:8], _TABLES[key], p, 0, n_steps, konv, mode)
     if konv:
@@ -565,34 +540,21 @@ def _launch(args8, tb, p: CombustionParams, row0: int, n_steps: int,
     ``tb``; returns the 8 arrays after them (the first only is advanced
     without ``konv``).  ``mode``: the kernel's first_mode.  Counts them
     (``.halo`` for the halo route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
-        lib = _build.load()
         dtype, device = args8[0].dtype, args8[0].device
-        run = (lib.combustion_run_f32 if dtype == torch.float32
-               else lib.combustion_run_f64)
         consts = kernel_constants(p, konv)
         _, ny, nx = args8[0].shape
         a = torch.stack(list(args8))
         b = torch.empty_like(a)
         fld = torch.empty((5, ny, nx), dtype=dtype, device=device)
         side = torch.empty((3, Q, 2 * (nx + ny)), dtype=dtype, device=device)
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = run(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
-                      tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
-                      tb["fs_row"].data_ptr(), fld.data_ptr(), side.data_ptr(),
-                      ny, nx, row0 % p.ny,
-                      p.ny, n_steps, mode, ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("combustion_step launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(FAMILY, n_steps, n_steps * launches_per_step(p, konv),
-                   halo_route)
+    _build.enqueue(FAMILY, "combustion_run", args8[0], n_steps,
+                   n_steps * launches_per_step(p, konv),
+                   [(a.data_ptr(), b.data_ptr(), tb["flags"].data_ptr(),
+                     tb["ckn"].data_ptr(), tb["fs_col"].data_ptr(),
+                     tb["fs_row"].data_ptr(), fld.data_ptr(), side.data_ptr(),
+                     ny, nx, row0 % p.ny, p.ny, n_steps, mode,
+                     ctypes.addressof(consts))], halo_route)
     return (b if n_steps % 2 else a).unbind(0)
 
 
@@ -648,11 +610,10 @@ def step_fused_halo(args8, tables_ext, row0: int, p: CombustionParams,
     _check_slab(args8, p)
     ny_ext = args8[0].shape[1]
     halo = _halo.check(halo, REACH, nsub, ny_ext, "rows")
-    device = args8[0].device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {device}")
-    _check_tables(tables_ext, row0, p, ny_ext, device, args8[0].dtype)
-    if device.type == "cpu":
+    card = on_card(args8[0])
+    _check_tables(tables_ext, row0, p, ny_ext, args8[0].device,
+                  args8[0].dtype)
+    if not card:
         return step_halo_plain(args8, row0, p, konv, nsub, halo)
     out = _launch(args8, tables_ext, p, row0, nsub, konv, 0, halo_route=True)
     if not konv:

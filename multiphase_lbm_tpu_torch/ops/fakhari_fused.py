@@ -27,8 +27,9 @@ import torch
 
 from ..models import fakhari as fk
 from ..models.fakhari import FakhariParams
-from ..utils.profiling import count_launches, span
-from . import _halo
+from ..utils.profiling import span
+from . import _build, _halo
+from ._checks import check_tensors, on_card
 
 FAMILY = "fakhari_step"
 # kernel launches a step (collide-and-stream, φ, velocity), and the φ pass
@@ -63,38 +64,20 @@ def kernel_constants(p: FakhariParams) -> _FakhariConst:
         one_minus_s8=1.0 - p.s8, fac=(0.5 - p.tau) / p.tau, drho3=p.drho3)
 
 
-def check_state(h, g, u):
+def _check_state(h, g, u):
     """Raise unless ``h`` and ``g`` are ``(9, ny, nx)`` and ``u`` is
     ``(2, ny, nx)``, all contiguous, of one float32/float64 dtype, on one
     device."""
-    for name, t, q in (("h", h, 9), ("g", g, 9), ("u", u, 2)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch tensor")
-        if t.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
-        if t.ndim != 3 or t.shape[0] != q:
-            raise ValueError(f"{name} must have shape ({q}, ny, nx), got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("g", g), ("u", u)):
-        if (t.shape[1:] != h.shape[1:] or t.dtype != h.dtype
-                or t.device != h.device):
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} "
-                             f"does not match h {tuple(h.shape)} {h.dtype} on "
-                             f"{h.device}")
+    check_tensors(("h", h, (9, None, None)), ("g", g, (9, None, None)),
+                  ("u", u, (2, None, None)))
 
 
 def run_fused(h, g, u, p: FakhariParams, n_steps: int):
     """Advance ``n_steps`` Fakhari steps on the periodic lattice; returns a
     new ``(h, g, u)``.  The caller's tensors are never written."""
-    check_state(h, g, u)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    if h.device.type == "cpu":
+    _check_state(h, g, u)
+    if not on_card(h, n_steps):
         return fk.run((h, g, u), p, n_steps)
-    if h.device.type != "cuda":
-        raise ValueError(f"no kernel for device {h.device}")
     if n_steps == 0:
         return h.clone(), g.clone(), u.clone()
     return _launch(h, g, u, p, n_steps, halo_route=False)
@@ -104,35 +87,26 @@ def _launch(h, g, u, p: FakhariParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(h, g, u)``,
     ping-ponging two new sets of buffers; counts them (``.halo`` for the
     halo route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
-        lib = _build.load()
-        step = (lib.fakhari_step_f32 if h.dtype == torch.float32
-                else lib.fakhari_step_f64)
         consts = kernel_constants(p)
         _, ny, nx = h.shape
         bufs = tuple(tuple(torch.empty_like(t) for t in (h, g, u))
                      for _ in range(2))
         phi = torch.empty((ny, nx), dtype=h.dtype, device=h.device)
-    src = (h, g, u)
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(h.device):
-            stream = torch.cuda.current_stream(h.device).cuda_stream
-            for i in range(n_steps):
-                dst = bufs[i % 2]
-                # after the first step, phi already holds Σh of src
-                err = step(*(t.data_ptr() for t in src + dst), phi.data_ptr(),
-                           ny, nx, int(i > 0), ctypes.addressof(consts), stream)
-                if err != 0:
-                    raise RuntimeError("fakhari_step launch failed: "
-                                       + lib.sc_error_string(err).decode())
-                src = dst
-    count_launches(FAMILY, n_steps,
-                   n_steps * LAUNCHES_PER_STEP + LAUNCHES_PER_CALL, halo_route)
-    return src
+
+    def calls():
+        src = (h, g, u)
+        for i in range(n_steps):
+            dst = bufs[i % 2]
+            # after the first step, phi already holds Σh of src
+            yield (*(t.data_ptr() for t in src + dst), phi.data_ptr(), ny, nx,
+                   int(i > 0), ctypes.addressof(consts))
+            src = dst
+
+    _build.enqueue(FAMILY, "fakhari_step", h, n_steps,
+                   n_steps * LAUNCHES_PER_STEP + LAUNCHES_PER_CALL, calls(),
+                   halo_route)
+    return bufs[(n_steps - 1) % 2]
 
 
 def step_halo_plain(h_ext, g_ext, u_ext, p: FakhariParams, nsub: int = 1,
@@ -156,11 +130,9 @@ def step_fused_halo(h_ext, g_ext, u_ext, p: FakhariParams, nsub: int = 1,
     the slab's edges; those rows reach at most ``REACH · nsub`` rows in, all
     of them cropped.
     """
-    check_state(h_ext, g_ext, u_ext)
+    _check_state(h_ext, g_ext, u_ext)
     halo = _halo.check(halo, REACH, nsub, h_ext.shape[1], "rows")
-    if h_ext.device.type == "cpu":
+    if not on_card(h_ext):
         return step_halo_plain(h_ext, g_ext, u_ext, p, nsub, halo)
-    if h_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {h_ext.device}")
     out = _launch(h_ext, g_ext, u_ext, p, nsub, halo_route=True)
     return tuple(_halo.interior(t, halo, 1) for t in out)

@@ -34,9 +34,10 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
-from ..utils.profiling import count_launches, span
-from . import _grid, _halo
-from .hcz_fused import check_state, kernel_constants
+from ..utils.profiling import span
+from . import _build, _grid, _halo
+from ._checks import check_tensors, on_card
+from .hcz_fused import kernel_constants
 
 FAMILY = "hcz3d_step"
 RECORD_FAMILY = "hcz3d_record"
@@ -62,6 +63,11 @@ LAUNCHES_PER_STEP = 2
 RECORD_LAUNCHES = 2
 
 
+def _check_state(f, g):
+    check_tensors(("f", f, (19, None, None, None)),
+                  ("g", g, (19, None, None, None)))
+
+
 def run_fused_3d(f, g, p: HCZParams, n_steps: int):
     """Advance ``n_steps`` periodic HCZ 3D steps; returns a new ``(f, g)``.
 
@@ -69,15 +75,11 @@ def run_fused_3d(f, g, p: HCZParams, n_steps: int):
       f, g: populations ``(19, nz, ny, nx)``, float32 or float64, contiguous.
     The caller's tensors are never written.
     """
-    check_state(f, g, 3, 19)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    if f.device.type == "cpu":
+    _check_state(f, g)
+    if not on_card(f, n_steps):
         fluid = torch.ones(f.shape[1:], dtype=torch.bool)
         return hcz.run((f, g), fluid, p, n_steps, lattice=hcz.D3Q19,
                        three_d=True)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone(), g.clone()
     return _launch(f, g, p, n_steps, halo_route=False)
@@ -87,31 +89,19 @@ def _launch(f, g, p: HCZParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
     which ping-pongs two new pairs of buffers; counts them (``.halo`` for
     the halo route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
         _, nz, ny, nx = f.shape
         _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
-        lib = _build.load()
-        run = (lib.hcz3d_step_f32 if f.dtype == torch.float32
-               else lib.hcz3d_step_f64)
         consts = kernel_constants(p)
         a = (torch.empty_like(f), torch.empty_like(g))
         b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
         b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
         phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
-                      a[1].data_ptr(), *b_ptrs, phi.data_ptr(), nz, ny, nx,
-                      n_steps, ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("hcz3d_step launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
+    _build.enqueue(FAMILY, "hcz3d_step", f, n_steps,
+                   n_steps * LAUNCHES_PER_STEP,
+                   [(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                     a[1].data_ptr(), *b_ptrs, phi.data_ptr(), nz, ny, nx,
+                     n_steps, ctypes.addressof(consts))], halo_route)
     return a if n_steps % 2 else b
 
 
@@ -137,12 +127,10 @@ def step_fused_halo_3d(f_ext, g_ext, p: HCZParams, nsub: int = 1, halo=None):
     ends; those planes reach at most ``REACH · nsub`` planes in, all of
     them cropped.
     """
-    check_state(f_ext, g_ext, 3, 19)
+    _check_state(f_ext, g_ext)
     halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "z-planes")
-    if f_ext.device.type == "cpu":
+    if not on_card(f_ext):
         return step_halo_plain_3d(f_ext, g_ext, p, nsub, halo)
-    if f_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f_ext.device}")
     out = _launch(f_ext, g_ext, p, nsub, halo_route=True)
     return tuple(_halo.interior(t, halo, 1) for t in out)
 
@@ -158,34 +146,21 @@ def record_3d(f, g, p: HCZParams):
     CPU tensor, and only there, the plain value.  Nothing is read to the
     host here.
     """
-    check_state(f, g, 3, 19)
-    if f.device.type == "cpu":
+    _check_state(f, g)
+    if not on_card(f):
         fluid = torch.ones(f.shape[1:], dtype=torch.bool)
         e = hcz.kinetic_energy((f, g), fluid, p, hcz.D3Q19, three_d=True)
         return e.to(torch.float64).reshape(1)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
-    from . import _build
-
     with span("kernel.prepare", family=RECORD_FAMILY, steps=1):
         _, nz, ny, nx = f.shape
         grid = _grid.launch_geometry_3d(nz, ny, nx, TILE, ZC)
-        lib = _build.load()
-        run = (lib.hcz3d_record_f32 if f.dtype == torch.float32
-               else lib.hcz3d_record_f64)
         consts = kernel_constants(p)
         phi = torch.empty(f.shape[1:], dtype=f.dtype, device=f.device)
         ws = torch.empty(math.prod(grid) + 1, dtype=torch.float64,
                          device=f.device)
         out = torch.empty(1, dtype=torch.float64, device=f.device)
-    with span("kernel.enqueue", family=RECORD_FAMILY, steps=1):
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = run(f.data_ptr(), g.data_ptr(), phi.data_ptr(),
-                      ws.data_ptr(), out.data_ptr(), nz, ny, nx,
-                      ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("hcz3d_record launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(RECORD_FAMILY, 1, RECORD_LAUNCHES)
+    _build.enqueue(RECORD_FAMILY, "hcz3d_record", f, 1, RECORD_LAUNCHES,
+                   [(f.data_ptr(), g.data_ptr(), phi.data_ptr(),
+                     ws.data_ptr(), out.data_ptr(), nz, ny, nx,
+                     ctypes.addressof(consts))])
     return out

@@ -31,8 +31,9 @@ import torch
 
 from ..models import hcz
 from ..models.hcz import HCZParams
-from ..utils.profiling import count_launches, span
-from . import _grid, _halo
+from ..utils.profiling import span
+from . import _build, _grid, _halo
+from ._checks import check_mask, check_tensors, on_card
 
 FAMILY = "hcz_step"
 RECORD_FAMILY = "hcz_record"
@@ -68,38 +69,6 @@ def kernel_constants(p: HCZParams) -> _HCZConst:
         gx=p.gx, Gx_const=p.Gx_const)
 
 
-def check_state(f, g, ndim: int, q: int):
-    """Raise unless ``f`` and ``g`` are contiguous float32/float64 tensors of
-    one shape ``(q, *spatial)`` with ``ndim`` spatial axes, on one device."""
-    for name, t in (("f", f), ("g", g)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch tensor")
-        if t.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
-        if t.ndim != ndim + 1 or t.shape[0] != q:
-            raise ValueError(f"{name} must have shape ({q}, {ndim} lattice "
-                             f"axes), got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if g.shape != f.shape or g.dtype != f.dtype or g.device != f.device:
-        raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} does not "
-                         f"match f {tuple(f.shape)} {f.dtype} on {f.device}")
-
-
-def _check_mask(f, fluid_f32):
-    if not isinstance(fluid_f32, torch.Tensor):
-        raise TypeError("fluid_f32 must be a torch tensor")
-    if fluid_f32.dtype != torch.float32:
-        raise TypeError(f"fluid_f32 must be float32, got {fluid_f32.dtype}")
-    if tuple(fluid_f32.shape) != tuple(f.shape[1:]):
-        raise ValueError(f"fluid_f32 shape {tuple(fluid_f32.shape)} does not "
-                         f"match the lattice {tuple(f.shape[1:])}")
-    if fluid_f32.device != f.device:
-        raise ValueError(f"f on {f.device} but fluid_f32 on {fluid_f32.device}")
-    if not fluid_f32.is_contiguous():
-        raise ValueError("fluid_f32 must be contiguous")
-
-
 def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
     """Advance ``n_steps`` HCZ 2D steps; returns a new ``(f, g)``.
 
@@ -108,14 +77,10 @@ def run_fused(f, g, fluid_f32, p: HCZParams, n_steps: int):
       fluid_f32: fluid mask ``(ny, nx)`` float32 (1.0 fluid / 0.0 solid).
     The caller's tensors are never written.
     """
-    check_state(f, g, 2, 9)
-    _check_mask(f, fluid_f32)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    if f.device.type == "cpu":
+    check_tensors(("f", f, (9, None, None)), ("g", g, (9, None, None)))
+    check_mask(fluid_f32, f)
+    if not on_card(f, n_steps):
         return hcz.run((f, g), fluid_f32 > 0.5, p, n_steps)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone(), g.clone()
     return _launch(f, g, fluid_f32, p, n_steps, halo_route=False)
@@ -125,29 +90,18 @@ def _launch(f, g, fluid_f32, p: HCZParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensors ``(f, g)`` in one C call,
     which ping-pongs two new pairs of buffers; counts them (``.halo`` for
     the halo route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
         _, ny, nx = f.shape
         _grid.launch_geometry(ny, nx, TILE)
-        lib = _build.load()
-        run = lib.hcz_step_f32 if f.dtype == torch.float32 else lib.hcz_step_f64
         consts = kernel_constants(p)
         a = (torch.empty_like(f), torch.empty_like(g))
         b = (torch.empty_like(f), torch.empty_like(g)) if n_steps > 1 else None
         b_ptrs = (b[0].data_ptr(), b[1].data_ptr()) if b else (None, None)
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = run(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
-                      a[1].data_ptr(), *b_ptrs, fluid_f32.data_ptr(), ny, nx,
-                      n_steps, ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("hcz_step launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
+    _build.enqueue(FAMILY, "hcz_step", f, n_steps,
+                   n_steps * LAUNCHES_PER_STEP,
+                   [(f.data_ptr(), g.data_ptr(), a[0].data_ptr(),
+                     a[1].data_ptr(), *b_ptrs, fluid_f32.data_ptr(), ny, nx,
+                     n_steps, ctypes.addressof(consts))], halo_route)
     return a if n_steps % 2 else b
 
 
@@ -171,13 +125,12 @@ def step_fused_halo(f_ext, g_ext, fluid_ext_f32, p: HCZParams, nsub: int = 1,
     on the whole slab and wraps its row index at the slab's edges; those
     rows reach at most ``REACH · nsub`` rows in, all of them cropped.
     """
-    check_state(f_ext, g_ext, 2, 9)
-    _check_mask(f_ext, fluid_ext_f32)
+    check_tensors(("f_ext", f_ext, (9, None, None)),
+                  ("g_ext", g_ext, (9, None, None)))
+    check_mask(fluid_ext_f32, f_ext, "fluid_ext_f32")
     halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
-    if f_ext.device.type == "cpu":
+    if not on_card(f_ext):
         return step_halo_plain(f_ext, g_ext, fluid_ext_f32, p, nsub, halo)
-    if f_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f_ext.device}")
     out = _launch(f_ext, g_ext, fluid_ext_f32, p, nsub, halo_route=True)
     return tuple(_halo.interior(t, halo, 1) for t in out)
 
@@ -194,36 +147,22 @@ def record_2d(f, g, fluid_f32, p: HCZParams, heights=False):
     order), or raise; on a CPU tensor, and only there, the plain functions'
     values.  Nothing is read to the host here.
     """
-    check_state(f, g, 2, 9)
-    _check_mask(f, fluid_f32)
+    check_tensors(("f", f, (9, None, None)), ("g", g, (9, None, None)))
+    check_mask(fluid_f32, f)
     _, ny, nx = f.shape
-    if f.device.type == "cpu":
+    if not on_card(f):
         e = float(hcz.kinetic_energy((f, g), fluid_f32 > 0.5, p))
         h = (hcz.interface_heights(hcz.order_parameter(f).numpy(), p)
              if heights else ())
         return torch.tensor([e, *h], dtype=torch.float64)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
-    from . import _build
-
     with span("kernel.prepare", family=RECORD_FAMILY, steps=1):
         tiles = _grid.launch_geometry(ny, nx, TILE)
-        lib = _build.load()
-        run = (lib.hcz_record_f32 if f.dtype == torch.float32
-               else lib.hcz_record_f64)
         consts = kernel_constants(p)
         ws = torch.empty(2 * tiles[0] * tiles[1] + 1, dtype=torch.float64,
                          device=f.device)
         out = torch.empty(3, dtype=torch.float64, device=f.device)
-    with span("kernel.enqueue", family=RECORD_FAMILY, steps=1):
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = run(f.data_ptr(), g.data_ptr(), fluid_f32.data_ptr(),
-                      ws.data_ptr(), out.data_ptr(), ny, nx,
-                      ctypes.addressof(consts), 0.5 * (p.phi_l + p.phi_g),
-                      stream)
-    if err != 0:
-        raise RuntimeError("hcz_record launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(RECORD_FAMILY, 1, 1)
+    _build.enqueue(RECORD_FAMILY, "hcz_record", f, 1, 1,
+                   [(f.data_ptr(), g.data_ptr(), fluid_f32.data_ptr(),
+                     ws.data_ptr(), out.data_ptr(), ny, nx,
+                     ctypes.addressof(consts), 0.5 * (p.phi_l + p.phi_g))])
     return out if heights else out[:1]

@@ -24,6 +24,8 @@ Each call counts its steps and launches in the recorder of
 ``kernel.launches.pulsatile_step``), so a run can show that its main path
 went through the kernel, and records the ``kernel.prepare`` and
 ``kernel.enqueue`` spans, and the ``wait`` of its counters' read.
+:func:`fresh_map`, the checking aid of the geometry tail, counts as the
+family ``pulsatile_fresh_map`` (one step and one launch a call).
 """
 from __future__ import annotations
 
@@ -34,9 +36,12 @@ import torch
 
 from ..models import pulsatile as pm
 from ..models.pulsatile import PulsatileParams, PulsatileState
-from ..utils.profiling import count_launches, span, to_host
+from ..utils.profiling import span, to_host
+from . import _build
+from ._checks import check_mask, check_tensors, on_card
 
 FAMILY = "pulsatile_step"
+FRESH_MAP_FAMILY = "pulsatile_fresh_map"
 # kernel launches a step: the Bouzidi links of each wall, the collide-and-
 # stream tile, the geometry tail and the reseed scatter
 LAUNCHES_PER_STEP = 5
@@ -117,27 +122,10 @@ def check_state(state, p: PulsatileParams):
                          "or the tile grid")
     shapes = {"g_coll": (9, ny, nx), "g_stream": (9, ny, nx), "yr1": (nx,),
               "yr2": (nx,), "P": (ny, nx), "Ux": (ny, nx), "Uy": (ny, nx),
-              "F": (ny + 2, nx + 2), "fluid": (ny, nx)}
-    if not isinstance(state.g_coll, torch.Tensor):
-        raise TypeError("g_coll must be a torch tensor")
-    dtype = state.g_coll.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"g_coll must be float32 or float64, got {dtype}")
-    device = state.g_coll.device
-    for name, shape in shapes.items():
-        t = getattr(state, name)
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch tensor")
-        want = torch.bool if name == "fluid" else dtype
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, g_coll on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+              "F": (ny + 2, nx + 2)}
+    check_tensors(*((name, getattr(state, name), shape)
+                    for name, shape in shapes.items()))
+    check_mask(state.fluid, state.g_coll, "fluid", torch.bool)
 
 
 def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
@@ -149,22 +137,11 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
     written."""
     check_params(p)
     check_state(state, p)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    device = state.g_coll.device
-    if device.type == "cpu":
+    if not on_card(state.g_coll, n_steps):
         st, (n_dep, n_cells) = pm.run_with_diag(state, t0, p, n_steps)
         return st, torch.tensor([n_dep, n_cells], dtype=torch.int64)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
-        lib = _build.load()
-        dtype = state.g_coll.dtype
-        run = (lib.pulsatile_run_f32 if dtype == torch.float32
-               else lib.pulsatile_run_f64)
+        dtype, device = state.g_coll.dtype, state.g_coll.device
         consts = kernel_constants(p)
         ny, nx = p.ny, p.nx
         src = (state.g_coll, state.g_stream,
@@ -178,20 +155,13 @@ def run_fused_full(state: PulsatileState, t0, p: PulsatileParams,
         rs_idx = torch.empty(cap, **ints)
         rs_val = torch.empty(9 * cap, dtype=dtype, device=device)
         ctr = torch.zeros(8, **ints)
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = run(*(t.data_ptr() for t in src),
-                      *(t.data_ptr() for b in bufs for t in b),
-                      bz_idx.data_ptr(), bz_val.data_ptr(), rs_idx.data_ptr(),
-                      rs_val.data_ptr(), ctr.data_ptr(), ny, nx, cap, n_steps,
-                      int(t0), ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("pulsatile_run launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP)
+    _build.enqueue(FAMILY, "pulsatile_run", state.g_coll, n_steps,
+                   n_steps * LAUNCHES_PER_STEP,
+                   [(*(t.data_ptr() for t in src),
+                     *(t.data_ptr() for b in bufs for t in b),
+                     bz_idx.data_ptr(), bz_val.data_ptr(), rs_idx.data_ptr(),
+                     rs_val.data_ptr(), ctr.data_ptr(), ny, nx, cap, n_steps,
+                     int(t0), ctypes.addressof(consts))])
     counts = to_host(ctr[:3]).to(torch.int64)
     if counts[2]:
         raise RuntimeError(f"{int(counts[2])} steps had more than {cap} "
@@ -246,28 +216,17 @@ def fresh_map(yr, yr_new, p: PulsatileParams):
     tensor: the window of rows around each wall that the tail searches and
     its per-cell test (``pulsatile_fresh_map_*``); the plain version on a
     CPU tensor."""
-    if yr.device.type == "cpu":
+    if not on_card(yr):
         return fresh_map_plain(yr, yr_new, p)
-    if yr.device.type != "cuda":
-        raise ValueError(f"no kernel for device {yr.device}")
     if (yr.shape != (2, p.nx) or yr_new.shape != yr.shape
             or yr_new.dtype != yr.dtype or yr_new.device != yr.device
             or yr.dtype not in (torch.float32, torch.float64)):
         raise ValueError("yr and yr_new must be (2, nx) tensors of one float "
                          "dtype and device")
-    from . import _build
-
-    lib = _build.load()
-    fn = (lib.pulsatile_fresh_map_f32 if yr.dtype == torch.float32
-          else lib.pulsatile_fresh_map_f64)
     yr, yr_new = yr.contiguous(), yr_new.contiguous()
     out = torch.zeros((p.ny, p.nx), dtype=torch.uint8, device=yr.device)
     consts = kernel_constants(p)
-    with torch.cuda.device(yr.device):
-        err = fn(yr.data_ptr(), yr_new.data_ptr(), out.data_ptr(), p.ny, p.nx,
-                 ctypes.addressof(consts),
-                 torch.cuda.current_stream(yr.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("pulsatile_fresh_map launch failed: "
-                           + lib.sc_error_string(err).decode())
+    _build.enqueue(FRESH_MAP_FAMILY, "pulsatile_fresh_map", yr, 1, 1,
+                   [(yr.data_ptr(), yr_new.data_ptr(), out.data_ptr(), p.ny,
+                     p.nx, ctypes.addressof(consts))])
     return out.bool()

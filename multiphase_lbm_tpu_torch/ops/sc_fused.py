@@ -30,8 +30,9 @@ from ..core import eos
 from ..core.collision import MRT_M_I, MRT_M_I_INV
 from ..models import shan_chen as sc
 from ..models.shan_chen import SCParams
-from ..utils.profiling import count_launches, span
-from . import _grid, _halo
+from ..utils.profiling import span
+from . import _build, _grid, _halo
+from ._checks import check_mask, check_tensors, on_card
 
 FAMILY = "sc_step"
 # kernel launches a step
@@ -100,24 +101,6 @@ def kernel_constants(p: SCParams) -> _SCConst:
     return c
 
 
-def _check_state(f, fluid_f32):
-    if not isinstance(f, torch.Tensor) or not isinstance(fluid_f32, torch.Tensor):
-        raise TypeError("f and fluid_f32 must be torch tensors")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"f must be float32 or float64, got {f.dtype}")
-    if f.ndim != 3 or f.shape[0] != 9:
-        raise ValueError(f"f must have shape (9, ny, nx), got {tuple(f.shape)}")
-    if fluid_f32.dtype != torch.float32:
-        raise TypeError(f"fluid_f32 must be float32, got {fluid_f32.dtype}")
-    if tuple(fluid_f32.shape) != tuple(f.shape[1:]):
-        raise ValueError(f"fluid_f32 shape {tuple(fluid_f32.shape)} does not "
-                         f"match the lattice {tuple(f.shape[1:])}")
-    if fluid_f32.device != f.device:
-        raise ValueError(f"f on {f.device} but fluid_f32 on {fluid_f32.device}")
-    if not (f.is_contiguous() and fluid_f32.is_contiguous()):
-        raise ValueError("f and fluid_f32 must be contiguous")
-
-
 def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
     """Advance ``n_steps`` Shan–Chen steps; returns a new tensor.
 
@@ -129,15 +112,12 @@ def run_fused(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool = False):
     The caller's ``f`` is never written.
     """
     check_params(p)
-    _check_state(f, fluid_f32)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    if f.device.type == "cpu":
+    check_tensors(("f", f, (9, None, None)))
+    check_mask(fluid_f32, f)
+    if not on_card(f, n_steps):
         fluid = (torch.ones_like(fluid_f32, dtype=torch.bool) if periodic
                  else fluid_f32 > 0.5)
         return sc.run(f, fluid, p, n_steps)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone()
     return _launch(f, fluid_f32, p, n_steps, periodic, halo_route=False)
@@ -148,29 +128,18 @@ def _launch(f, fluid_f32, p: SCParams, n_steps: int, periodic: bool,
     """``n_steps`` kernel steps on the CUDA tensor ``f`` in one C call,
     which ping-pongs two new buffers; counts them (``.halo`` for the halo
     route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
         _, ny, nx = f.shape
         _grid.launch_geometry(ny, nx, TILE)
-        lib = _build.load()
-        run = lib.sc_step_f32 if f.dtype == torch.float32 else lib.sc_step_f64
         consts = kernel_constants(p)
         a = torch.empty_like(f)
         b = torch.empty_like(f) if n_steps > 1 else None
         mask_ptr = None if periodic else fluid_f32.data_ptr()
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = run(f.data_ptr(), a.data_ptr(), b.data_ptr() if b is not None
-                      else None, mask_ptr, ny, nx, int(periodic), n_steps,
-                      ctypes.addressof(consts), stream)
-    if err != 0:
-        raise RuntimeError("sc_step launch failed: "
-                           + lib.sc_error_string(err).decode())
-    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
+    _build.enqueue(FAMILY, "sc_step", f, n_steps, n_steps * LAUNCHES_PER_STEP,
+                   [(f.data_ptr(), a.data_ptr(),
+                     b.data_ptr() if b is not None else None, mask_ptr, ny, nx,
+                     int(periodic), n_steps, ctypes.addressof(consts))],
+                   halo_route)
     return a if n_steps % 2 else b
 
 
@@ -199,12 +168,11 @@ def step_fused_halo(f_ext, fluid_ext_f32, p: SCParams, nsub: int = 1,
     them cropped.
     """
     check_params(p)
-    _check_state(f_ext, fluid_ext_f32)
+    check_tensors(("f_ext", f_ext, (9, None, None)))
+    check_mask(fluid_ext_f32, f_ext, "fluid_ext_f32")
     halo = _halo.check(halo, REACH, nsub, f_ext.shape[1], "rows")
-    if f_ext.device.type == "cpu":
+    if not on_card(f_ext):
         return step_halo_plain(f_ext, fluid_ext_f32, p, nsub, halo)
-    if f_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f_ext.device}")
     return _halo.interior(
         _launch(f_ext, fluid_ext_f32, p, nsub, periodic=False,
                 halo_route=True),

@@ -29,8 +29,9 @@ import torch
 
 from ..models import shan_chen_rt as rt
 from ..models.shan_chen_rt import SCRTParams
-from ..utils.profiling import count_launches, span
-from . import _halo
+from ..utils.profiling import span
+from . import _build, _halo
+from ._checks import check_tensors, on_card
 
 FAMILY = "scrt_step"
 # kernel launches a step: the ψ pass and the collide-and-stream pass
@@ -61,16 +62,9 @@ def kernel_constants(p: SCRTParams) -> _SCRTConst:
 def check_state(f):
     """Raise unless ``f`` is a contiguous float32/float64 tensor of shape
     ``(9, ny, nx)`` with ``ny >= 3`` (two wall rows and a fluid row)."""
-    if not isinstance(f, torch.Tensor):
-        raise TypeError("f must be a torch tensor")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"f must be float32 or float64, got {f.dtype}")
-    if f.ndim != 3 or f.shape[0] != 9:
-        raise ValueError(f"f must have shape (9, ny, nx), got {tuple(f.shape)}")
+    check_tensors(("f", f, (9, None, None)))
     if f.shape[1] < 3:
         raise ValueError(f"the channel needs ny >= 3 rows, got {f.shape[1]}")
-    if not f.is_contiguous():
-        raise ValueError("f must be contiguous")
 
 
 def run_fused(f, p: SCRTParams, n_steps: int):
@@ -78,14 +72,10 @@ def run_fused(f, p: SCRTParams, n_steps: int):
     (``(9, ny, nx)``, the input's dtype, wall rows zero).  The caller's
     tensor is never written."""
     check_state(f)
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
     _, ny, nx = f.shape
-    if f.device.type == "cpu":
+    if not on_card(f, n_steps):
         return rt.run(f, rt.geometry_channel(nx, ny, device=f.device), p,
                       n_steps)
-    if f.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f.device}")
     if n_steps == 0:
         return f.clone()
     return _launch(f, p, n_steps, halo_route=False)
@@ -94,32 +84,23 @@ def run_fused(f, p: SCRTParams, n_steps: int):
 def _launch(f, p: SCRTParams, n_steps: int, halo_route: bool):
     """``n_steps`` kernel steps on the CUDA tensor ``f``, ping-ponging two
     new buffers; counts them (``.halo`` for the halo route)."""
-    from . import _build
-
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
-        lib = _build.load()
-        step = (lib.scrt_step_f32 if f.dtype == torch.float32
-                else lib.scrt_step_f64)
         consts = kernel_constants(p)
         _, ny, nx = f.shape
         bufs = (torch.empty_like(f), torch.empty_like(f))
         psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
-    src = f
-    with span("kernel.enqueue", family=FAMILY, steps=n_steps):
-        # the library's runtime launches into the context current on this
-        # thread: make it the tensor's device
-        with torch.cuda.device(f.device):
-            stream = torch.cuda.current_stream(f.device).cuda_stream
-            for i in range(n_steps):
-                dst = bufs[i % 2]
-                err = step(src.data_ptr(), dst.data_ptr(), psi.data_ptr(), ny,
-                           nx, ctypes.addressof(consts), stream)
-                if err != 0:
-                    raise RuntimeError("scrt_step launch failed: "
-                                       + lib.sc_error_string(err).decode())
-                src = dst
-    count_launches(FAMILY, n_steps, n_steps * LAUNCHES_PER_STEP, halo_route)
-    return src
+
+    def calls():
+        src = f
+        for i in range(n_steps):
+            dst = bufs[i % 2]
+            yield (src.data_ptr(), dst.data_ptr(), psi.data_ptr(), ny, nx,
+                   ctypes.addressof(consts))
+            src = dst
+
+    _build.enqueue(FAMILY, "scrt_step", f, n_steps,
+                   n_steps * LAUNCHES_PER_STEP, calls(), halo_route)
+    return bufs[(n_steps - 1) % 2]
 
 
 def step_halo_plain(f_ext, p: SCRTParams, nsub: int = 1, halo=None):
@@ -145,8 +126,6 @@ def step_fused_halo(f_ext, p: SCRTParams, nsub: int = 1, halo=None):
     """
     check_state(f_ext)
     halo = _halo.check(halo, REACH, nsub, f_ext.shape[2], "columns")
-    if f_ext.device.type == "cpu":
+    if not on_card(f_ext):
         return step_halo_plain(f_ext, p, nsub, halo)
-    if f_ext.device.type != "cuda":
-        raise ValueError(f"no kernel for device {f_ext.device}")
     return _halo.interior(_launch(f_ext, p, nsub, halo_route=True), halo, 2)

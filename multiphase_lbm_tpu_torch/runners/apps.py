@@ -38,7 +38,7 @@ from ..models import pulsatile as pb
 from ..models import shan_chen_rt as rt
 from ..ops import (combustion_fused, fakhari_fused, hcz3d_fused, hcz_fused,
                    pulsatile_fused, sc_fused, scrt_fused)
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from .common import Driver, next_chunk
 
 
@@ -343,12 +343,8 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
             with drv.record(it):
                 # the energy: the record kernel on the card (the plain
                 # macro_3d fields on the CPU), then one scalar read
-                on_card = state[0].is_cuda
-                with span("record.energy", family="hcz3d",
-                          path="kernel" if on_card else "plain"):
+                with span("record.energy", family="hcz3d"):
                     e = drv.scalar(hcz3d_fused.record_3d(*state, p))
-                    if not on_card:
-                        count("record.plain.hcz3d")
                 drv.log_file("energy.dat").log(it * dt, e)
         with drv.chunk(it):
             chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)

@@ -14,7 +14,6 @@ The CUDA kernel itself is held against the plain path on the card by
 tests/test_torch_hcz_fused_gpu.py, and its source, compiled with g++ for
 the CPU, by tests/test_torch_hcz_emulated.py.
 """
-import ctypes
 import dataclasses
 import functools
 import pathlib
@@ -37,7 +36,7 @@ from multiphase_lbm_tpu_torch.core import stencil as tst
 from multiphase_lbm_tpu_torch.io import config as tconfig
 from multiphase_lbm_tpu_torch.io.loggers import DatLogger
 from multiphase_lbm_tpu_torch.models import hcz as thcz
-from multiphase_lbm_tpu_torch.ops import _build, _grid, hcz_fused
+from multiphase_lbm_tpu_torch.ops import _grid, hcz_fused
 from multiphase_lbm_tpu_torch.runners import coolbm as tcoolbm
 from multiphase_lbm_tpu_torch.utils.convert import (hcz_params_from_jax,
                                                     hcz_state_from_numpy)
@@ -288,32 +287,27 @@ def test_launch_geometry_refuses_what_the_kernel_cannot_index(ny, nx):
 
 
 def test_wrapper_mirrors_the_kernel_source():
-    """``TILE`` is the source's (TILE_Y, TILE_X), and the ctypes argument
-    types of both C entries follow their signatures (pointers as c_void_p,
-    ints, n_steps among them, as c_int)."""
+    """``TILE`` is the source's (TILE_Y, TILE_X), and both C entries take
+    ny, nx and n_steps where the wrapper passes them
+    (``tests/test_torch_ops.py`` holds their argument types to the
+    signatures)."""
     m = re.search(r"constexpr int TILE_X = (\d+), TILE_Y = (\d+);", _HCZ_CU)
     assert (int(m.group(2)), int(m.group(1))) == hcz_fused.TILE
     for name in ("hcz_step_f32", "hcz_step_f64"):
         params = re.search(rf"int {name}\(([^)]*)\)", _HCZ_CU).group(1)
-        kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
-                 for a in params.split(",")]
         assert [a.split()[-1].lstrip("*") for a in params.split(",")][7:10] \
             == ["ny", "nx", "n_steps"]
-        assert _build.ENTRY_POINTS[name] == kinds
 
 
 
 def test_record_entries_mirror_the_kernel_source():
-    """The ctypes argument types of the record entries follow their
-    signatures (pointers as c_void_p, ints as c_int, φ_mid as c_double)."""
+    """The record entries take ny and nx where the wrapper passes them
+    (``tests/test_torch_ops.py`` holds their argument types to the
+    signatures)."""
     for name in ("hcz_record_f32", "hcz_record_f64"):
         params = re.search(rf"int {name}\(([^)]*)\)", _HCZ_CU).group(1)
-        kinds = [ctypes.c_void_p if "*" in a else
-                 ctypes.c_double if a.split()[0] == "double" else ctypes.c_int
-                 for a in params.split(",")]
         assert [a.split()[-1].lstrip("*") for a in params.split(",")][5:7] \
             == ["ny", "nx"]
-        assert _build.ENTRY_POINTS[name] == kinds
 
 
 # ─── the record entry on the CPU ───────────────────────────────────────────

@@ -200,20 +200,18 @@ def test_launch_geometry_3d_refuses_what_the_kernel_cannot_index(nz, ny, nx):
     ("hcz3d_record_f64", (5, ["nz", "ny", "nx"])),
 ])
 def test_wrapper_mirrors_the_kernel_source(name, ints):
-    """``TILE`` and ``ZC`` are the source's, and the ctypes argument types
-    of each C entry follow its signature (pointers as c_void_p, ints, the
-    box's extents among them, as c_int)."""
+    """``TILE`` and ``ZC`` are the source's, and each C entry takes the
+    box's extents (and n_steps) where the wrapper passes them
+    (``tests/test_torch_ops.py`` holds its argument types to the
+    signature)."""
     m = re.search(r"constexpr int TILE_X = (\d+), TILE_Y = (\d+), ZC = (\d+);",
                   _HCZ3D_CU)
     assert (int(m.group(2)), int(m.group(1))) == hcz3d_fused.TILE
     assert int(m.group(3)) == hcz3d_fused.ZC
     params = re.search(rf"int {name}\(([^)]*)\)", _HCZ3D_CU).group(1)
-    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
-             for a in params.split(",")]
     first, names = ints
     assert [a.split()[-1].lstrip("*") for a in params.split(",")][
         first:first + len(names)] == names
-    assert _build.ENTRY_POINTS[name] == kinds
 
 
 # ─── the record entry (hcz3d_record_*) ──────────────────────────────────────

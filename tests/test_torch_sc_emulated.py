@@ -190,9 +190,9 @@ def test_entry_refuses_lattices_past_32_bit_indices(lib):
 
 
 def test_wrapper_mirrors_the_kernel_source():
-    """``TILE`` is the source's (TILE_Y, TILE_X); ``_SCConst`` has the
-    fields of ``struct SCConst`` in its order; the ctypes argument types
-    of both C entries follow their signatures."""
+    """``TILE`` is the source's (TILE_Y, TILE_X), and ``_SCConst`` has the
+    fields of ``struct SCConst`` in its order (``tests/test_torch_ops.py``
+    holds the C entries' argument types to their signatures)."""
     m = re.search(r"constexpr int TILE_X = (\d+), TILE_Y = (\d+);", _SC_CU)
     assert (int(m.group(2)), int(m.group(1))) == sc_fused.TILE
     body = re.search(r"struct SCConst \{(.*?)\};", _SC_CU, re.S).group(1)
@@ -201,8 +201,3 @@ def test_wrapper_mirrors_the_kernel_source():
              for decl in body.split(";") if decl.strip()
              for v in decl.split(",")]
     assert names == [name for name, _ in sc_fused._SCConst._fields_]
-    for name in ("sc_step_f32", "sc_step_f64"):
-        params = re.search(rf"int {name}\(([^)]*)\)", _SC_CU).group(1)
-        kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
-                 for a in params.split(",")]
-        assert _build.ENTRY_POINTS[name] == kinds

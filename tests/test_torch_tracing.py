@@ -1,7 +1,7 @@
 """The port's own spans and counters (``utils/profiling``): the recorder,
 the driver loop's spans and bytes read to the host, the kernel wrappers'
-launch counters, the 3D droplet's ``record.energy`` span and
-``record.plain.hcz3d`` counter, the operator's ``--profile`` exporter and
+launch counters, the 3D droplet's ``record.energy`` span, the operator's
+``--profile`` exporter and
 the benchmark's per-layer metrics that read them.
 
 The CPU tests run the plain path, which enqueues no kernel, so the
@@ -158,11 +158,9 @@ def test_driver_loop_spans_and_bytes_read(case, tmp_path):
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
 def test_laplace3d_record_energy_span_and_counter(device, tmp_path, request):
     """A traced ``run_laplace3d``: one ``record.energy`` span a record,
-    inside the record, with its read; on the CPU the plain path's
-    attributes and ``record.plain.hcz3d`` counting the records; on the card
-    ``path="kernel"``, ``record.plain.hcz3d`` at 0, one
-    ``kernel.steps.hcz3d_record`` a record, and the wrapper counts two
-    ``hcz3d_step`` launches a step."""
+    inside the record, with its read; ``kernel.steps.hcz3d_record`` counts
+    one a record on the card and none on the CPU (the plain path), and the
+    wrapper counts two ``hcz3d_step`` launches a step on the card."""
     if device == "cuda":
         request.getfixturevalue("cuda_device")
     torch.set_num_threads(1)
@@ -180,19 +178,12 @@ def test_laplace3d_record_energy_span_and_counter(device, tmp_path, request):
     energy = [s for s in spans if s.name == "record.energy"]
     assert [s.attrs["it"] for s in records] == [0, 4, 8]
     assert [s.parent for s in energy] == records
-    path = "kernel" if device == "cuda" else "plain"
-    assert all(s.attrs == {"family": "hcz3d", "path": path} for s in energy)
+    assert all(s.attrs == {"family": "hcz3d"} for s in energy)
     assert all(any(w.name == "wait" and w.parent is s for w in spans)
                for s in energy)
     assert len(records) == 3
-    if device == "cuda":
-        assert profiling.counter("record.plain.hcz3d") == 0
-        assert profiling.counter("kernel.steps.hcz3d_record") == len(records)
-    else:
-        assert profiling.counter("record.plain.hcz3d") == len(records)
-        events = [e for e in profiling.count_events()
-                  if e[1] == "record.plain.hcz3d"]
-        assert all(s.t0 <= t <= s.t1 for (t, _, _), s in zip(events, energy))
+    assert profiling.counter("kernel.steps.hcz3d_record") == (
+        len(records) if device == "cuda" else 0)
     launches = profiling.counter("kernel.launches.hcz3d_step")
     assert launches == (2 * 10 if device == "cuda" else 0)
 
