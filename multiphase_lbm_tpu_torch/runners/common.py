@@ -14,35 +14,45 @@ from ..io.vtk import VtkWriter, sol_filename
 from ..utils.profiling import carry, count, span, to_host, tracing
 
 
-class _HostCopy:
-    """A field on its way to the host.  A CUDA tensor is copied into pinned
-    memory with ``non_blocking=True`` on the current stream and an event is
-    recorded after the copy; :meth:`numpy` waits on that event.  Later work
-    on the stream cannot overwrite the source before the copy has run,
-    because the copy is ordered before it.  A tensor's bytes count in
-    ``d2h_bytes`` on either device, as :func:`..utils.profiling.to_host`
-    counts them."""
+class _HostCopies:
+    """The fields of one dump on their way to the host, in the groups
+    ``write_vtk`` takes.  Each CUDA tensor is copied into pinned memory with
+    ``non_blocking=True`` on the current stream, and one event is recorded
+    after the last copy; :meth:`groups` waits on that event once, so the
+    writer thread gives up the interpreter lock for one wait a dump, not
+    one a field.  Later work on the stream cannot overwrite a source before
+    its copy has run, because the copy is ordered before it.  A tensor's
+    bytes count in ``d2h_bytes`` on either device, as
+    :func:`..utils.profiling.to_host` counts them."""
 
-    def __init__(self, data):
+    def __init__(self, *groups):
+        self._copied = False
+        self._groups = tuple(tuple((name, self._stage(data))
+                                   for name, data in fields)
+                             for fields in groups)
         self._event = None
-        if isinstance(data, torch.Tensor):
-            count("d2h_bytes", data.numel() * data.element_size())
-            if data.is_cuda:
-                host = torch.empty(data.shape, dtype=data.dtype,
-                                   pin_memory=True)
-                host.copy_(data, non_blocking=True)
-                self._event = torch.cuda.Event()
-                self._event.record()
-                data = host
-            else:
-                data = data.detach()
-        self._data = data
+        if self._copied:
+            self._event = torch.cuda.Event()
+            self._event.record()
 
-    def numpy(self):
+    def _stage(self, data):
+        if not isinstance(data, torch.Tensor):
+            return np.asarray(data)
+        count("d2h_bytes", data.numel() * data.element_size())
+        if not data.is_cuda:
+            return data.detach()
+        host = torch.empty(data.shape, dtype=data.dtype, pin_memory=True)
+        host.copy_(data, non_blocking=True)
+        self._copied = True
+        return host
+
+    def groups(self):
+        """Each group's ``(name, numpy array)`` pairs, once the copies ran."""
         if self._event is not None:
             self._event.synchronize()
-        data = self._data
-        return data.numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+        return tuple(tuple((name, d.numpy() if isinstance(d, torch.Tensor)
+                            else d) for name, d in fields)
+                     for fields in self._groups)
 
 
 class Driver:
@@ -53,11 +63,11 @@ class Driver:
     VTK dumps are ASYNCHRONOUS by default (``async_io=True``): each field's
     device→host copy starts at once (pinned memory, non-blocking), then
     formatting and the disk write run on a single worker thread, which
-    waits for the copy, while the main thread enqueues the next chunk of
-    steps.  In-flight dumps are bounded to 2 so a run cannot accumulate
-    host staging.  ``finish()`` drains the queue and re-raises the first
-    worker error, so files are complete (and failures loud) before the
-    MLUPS line prints.  The model functions return new tensors and never
+    waits once for the dump's copies (:class:`_HostCopies`), while the main
+    thread enqueues the next chunk of steps.  In-flight dumps are bounded
+    to 2 so a run cannot accumulate host staging.  ``finish()`` drains the
+    queue and re-raises the first worker error, so files are complete (and
+    failures loud) before the MLUPS line prints.  The model functions return new tensors and never
     write into their inputs, so a snapshot handed to the worker cannot be
     changed by later steps.  Output is byte-identical to synchronous
     writes (``async_io=False``).
@@ -125,12 +135,9 @@ class Driver:
 
     def write_vtk(self, it, nx, ny, nz=1, spacing=1.0, scalars=(), vectors=(),
                   int_scalars=()):
-        def stage(fields):
-            return tuple((name, _HostCopy(data)) for name, data in fields)
-
         if not self.async_io:
-            self._do_write(it, nx, ny, nz, spacing, stage(scalars),
-                           stage(vectors), stage(int_scalars))
+            self._do_write(it, nx, ny, nz, spacing,
+                           _HostCopies(scalars, vectors, int_scalars))
             return
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
@@ -150,19 +157,19 @@ class Driver:
                         self._io_err = e
         # the writer thread records its spans when this thread is traced
         self._writes.append(self._pool.submit(
-            self._do_write, it, nx, ny, nz, spacing, stage(scalars),
-            stage(vectors), stage(int_scalars), tracing()))
+            self._do_write, it, nx, ny, nz, spacing,
+            _HostCopies(scalars, vectors, int_scalars), tracing()))
 
-    def _do_write(self, it, nx, ny, nz, spacing, scalars, vectors,
-                  int_scalars, traced=False):
+    def _do_write(self, it, nx, ny, nz, spacing, staged, traced=False):
         with carry(traced), span("vtk.write", it=it):
             w = VtkWriter(nx, ny, nz, spacing=spacing, iteration=it)
+            scalars, vectors, int_scalars = staged.groups()
             for name, data in scalars:
-                w.scalar(name, data.numpy())
+                w.scalar(name, data)
             for name, data in vectors:
-                w.vector(name, data.numpy())
+                w.vector(name, data)
             for name, data in int_scalars:
-                w.scalar(name, data.numpy(), as_int=True)
+                w.scalar(name, data, as_int=True)
             w.write(self.outdir / sol_filename(it))
 
     def drain(self):
