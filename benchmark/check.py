@@ -4,9 +4,10 @@ What the timed call produced is held against the configuration's plain
 reference, run in float64 once the window has closed:
 
 * ``state_err``: the populations the driver returned, which the kernel
-  produced in the last chunk of the window, against the reference's steps
-  of that chunk from the state that entered it; the largest absolute gap
-  over the largest reference value, the worst tensor counting.
+  produced from the chunk that ends at ``max_steps`` to the end of the
+  call, against the reference's as many steps from the state that entered
+  that chunk; the largest absolute gap over the largest reference value,
+  the worst tensor counting.
 * ``record_err``: the ``.dat`` values the driver wrote at the sampled
   records (the last, and one drawn from the seed) against the reference's
   diagnostics of the state at those records; per column, the largest gap
@@ -48,8 +49,9 @@ def _f64(state):
 
 
 def expected_outputs(ref, prm, captured, last, dumps):
-    """The reference's outputs in float64: the state after the last chunk,
-    the sampled records, and the tokens of the sampled dumps."""
+    """The reference's outputs in float64: the state ``n`` steps past the
+    one kept in ``last = (it, state, n)``, the sampled records, and the
+    tokens of the sampled dumps."""
     it, state, n = last
     return {"state": ref.step(_f64(state), prm, n),
             "records": ref.records({i: _f64(s) for i, s in captured.items()}, prm),

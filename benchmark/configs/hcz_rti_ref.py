@@ -10,11 +10,14 @@ Guo-type forcing of f and g and BGK (:552-665), and pull streaming with
 on-site bounce-back at the walls y = 0 and y = ny − 1 (:532-549).  The
 driver's energy record is ½⟨|u|²⟩ over the fluid cells, scaled by
 (dx/dt)², and its spike and bubble positions are the topmost rows at which
-φ is at most the mean of the binodal values (:668-708).  Plain PyTorch on whole tensors, in the dtype of the state it is
-given; it imports nothing of the program under test.
+φ is at most the mean of the binodal values (:668-708).  The driver's
+VTK dump holds φ, the density of the linear map and the solid flag.  Plain
+PyTorch on whole tensors, in the dtype of the state it is given; it
+imports nothing of the program under test.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # D2Q9 in the reference module's order, rest at k = 4
@@ -181,3 +184,48 @@ def record_counts(prm, steps):
 
 def dump_count(prm, steps):
     return -(-steps // prm["vtk_freq"]) if prm["vtk_freq"] else 0
+
+
+# a value under this share of its field's largest is round-off of a
+# cancellation, and its digits are not compared
+FLOOR = 1e-6
+
+
+def _fmt(a):
+    """C++ ``operator<<(float)`` of each value (6 significant digits), and
+    which values carry digits above round-off of the field's largest."""
+    v = a.detach().cpu().numpy().ravel()
+    counted = np.abs(v) >= FLOOR * np.abs(v).max()
+    return np.char.mod("%g", v.astype(np.float32)).tolist(), counted.tolist()
+
+
+def vtk_tokens(state, prm, it):
+    """The whitespace-separated tokens of the legacy-VTK dump at ``it``:
+    φ and the density of the linear map as float32 ``%g``, then the solid
+    flag (1 on the walls) as integers, x fastest, on spacing 1/N; and for
+    each token whether it is compared (every token but the digits of
+    round-off values)."""
+    f, _ = state
+    phi = f.sum(0)
+    rho = prm["rho_g"] + (phi - prm["phi_g"]) / (prm["phi_l"] - prm["phi_g"]) * (
+        prm["rho_l"] - prm["rho_g"])
+    nx, ny, s = prm["nx"], prm["ny"], f"{prm['dx']:g}"
+    tok = ["#", "vtk", "DataFile", "Version", "2.0", "iteration", str(it),
+           "ASCII", "DATASET", "STRUCTURED_POINTS", "DIMENSIONS", str(nx),
+           str(ny), "1", "ORIGIN", "0", "0", "0", "SPACING", s, s, s,
+           "POINT_DATA", str(nx * ny)]
+    counted = [True] * len(tok)
+    for name, field in (("phi", phi), ("density", rho)):
+        head = ["SCALARS", name, "float", "1", "LOOKUP_TABLE", "default"]
+        vals, keep = _fmt(field)
+        tok += head + vals
+        counted += [True] * len(head) + keep
+    flag = (~_fluid(prm, f.device)).to(torch.int64).cpu().numpy().ravel()
+    head = ["SCALARS", "Flag", "int", "1", "LOOKUP_TABLE", "default"]
+    tok += head + [str(v) for v in flag.tolist()]
+    counted += [True] * (len(head) + flag.size)
+    return tok, counted
+
+
+def dump_name(it):
+    return f"sol_{it:07d}.vtk"

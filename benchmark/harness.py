@@ -5,6 +5,9 @@ Everything that belongs to a configuration, a cell or a metric is data
 that this module finds by name (``BENCHMARK.json``, ``configs/``,
 ``cells/``, ``metrics/``, ``work/``); nothing here names a model.
 
+:class:`Spec` reads them under ``<root>/benchmark`` of the root it is
+given, so a test can rehearse a configuration in a root of its own.
+
 * The case file is the configuration's template (the reference's own
   ``config_*.txt``) with the cell's keys appended, and the keys the cell
   draws from ``--seed`` (the parser keeps a key's last value).
@@ -12,8 +15,10 @@ that this module finds by name (``BENCHMARK.json``, ``configs/``,
   rehearsal lattice (it builds and loads the kernel library on first use),
   then the cell's warm-up call, whose rate
   sizes the timed call: ``max_steps = k · out_freq + check_steps``, with k
-  records filling ``--seconds``.  The last chunk is then ``check_steps``
-  long, and the reference repeats it.
+  records filling ``--seconds``.  The chunk that ends at ``max_steps`` is
+  then ``check_steps`` long; the stepping calls that follow it in the same
+  call (a driver whose loop runs to ``max_steps`` inclusive takes one more
+  step) add theirs to it, and the reference repeats them all.
 * The window is the timed call of the driver, from the moment it builds
   its ``Driver`` (after making the lattice's initial state; the reference's
   MLUPS clock starts there too) to its return, after ``Driver.finish`` has
@@ -42,6 +47,20 @@ HERE = Path(__file__).resolve().parent
 # window and lasts at least this long
 SLICE_START = 0.25
 SLICE_SECONDS = 2.0
+# top-level modules the timed process may not hold once the window has
+# closed: JAX, what loads with it, and the JAX package the port replaces
+FOREIGN = frozenset({"jax", "jaxlib", "flax", "multiphase_lbm_tpu"})
+
+
+class ForeignModules(RuntimeError):
+    """The timed process holds a module of :data:`FOREIGN`."""
+
+
+def foreign_modules():
+    """The names of :data:`FOREIGN` that ``sys.modules`` holds, compared by
+    whole top-level names (the port's own name begins with the JAX
+    package's)."""
+    return sorted({name.partition(".")[0] for name in list(sys.modules)} & FOREIGN)
 
 
 def load_json(path):
@@ -83,11 +102,12 @@ class Spec:
         entry = {c["name"]: c for c in bench["configs"]}[self.workload["config"]]
         cfg_path = root / entry["file"]
         self.config = load_json(cfg_path)
-        self.cell = load_json(HERE / "cells" / f"{workload}.json")
+        self.home = root / HERE.name
+        self.cell = load_json(self.home / "cells" / f"{workload}.json")
         self.template = (cfg_path.parent / self.config["template"]).read_text()
         self.reference = load_module(cfg_path.parent / self.config["reference"])
-        self.work = load_json(HERE / "work" / f"{self.config['work']['family']}.json")
-        self.peaks = load_json(HERE / "peaks.json")
+        self.work = load_json(self.home / "work" / f"{self.config['work']['family']}.json")
+        self.peaks = load_json(self.home / "peaks.json")
 
         def mine(m):
             return workload in m.get("workloads", [workload])
@@ -118,7 +138,8 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool, device: str,
         t_start: float, shape=None, control=False):
     """One run; returns the result line as a dict (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, ``checks``; ``breakdown`` when
-    traced).  ``shape`` overrides case keys (the CPU rehearsal's tiny
+    traced).  Raises :class:`ForeignModules`, and returns no result, where
+    the process holds JAX or the JAX package once the check has run.  ``shape`` overrides case keys (the CPU rehearsal's tiny
     lattice); ``control`` adds the control's readings under ``control``."""
     import torch
 
@@ -190,11 +211,12 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool, device: str,
                                       slice_.t1 - slice_.t0, slice_.steps)
         ctx = SimpleNamespace(
             spec=spec, prm=prm, dtype=dtype_name, nelem=prm["cells"],
-            steps=max_steps, window_s=t1 - t0, setup_s=t0 - t_start,
+            steps=hooks.it, window_s=t1 - t0, setup_s=t0 - t_start,
             records=hooks.records, spans=hooks.spans, slice=sliced,
             slice_bounds=(slice_.t0, slice_.t1) if sliced else None)
         result = _result(spec, ctx, readings, trace, cuda, peak, sliced)
-        result["run"] = {"seed": seed, "max_steps": max_steps, "records": k + 1,
+        result["run"] = {"seed": seed, "max_steps": max_steps, "steps": hooks.it,
+                         "compared_steps": last[2], "records": k + 1,
                          "sampled_records": [i // o for i in sample],
                          "init_s": init_s, "warm_ms_per_step": per_step * 1e3,
                          "intervals_ms": [float(v) * 1e3 for v in np.percentile(
@@ -205,6 +227,9 @@ def run(spec: Spec, seed: int, seconds: float, trace: bool, device: str,
             result["control_correct"] = all(
                 ctl[n] <= lim for n, lim in spec.cell["limits"].items() if n in ctl)
         result["checks"] = result.pop("checks")
+        found = foreign_modules()
+        if found:
+            raise ForeignModules("the timed process holds " + ", ".join(found))
         return result
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -236,7 +261,7 @@ def _result(spec, ctx, readings, trace, cuda, peak, sliced):
               f"{t * 1e3:.6g} ms a step at the data-sheet peaks", file=sys.stderr)
     if cuda:
         for m in (spec.per_layer if trace else spec.end_to_end):
-            value = load_module(HERE / "metrics" / f"{m['name']}.py").read(ctx)
+            value = load_module(spec.home / "metrics" / f"{m['name']}.py").read(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     result = {"correct": failed == 0, "attempted": len(checks),

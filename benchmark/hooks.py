@@ -10,8 +10,9 @@ range named ``bench.<span>``), then calls the original.  The window of a
 driver call starts when it builds its ``Driver`` (after the lattice's
 initial state is made), where the reference's MLUPS clock starts.  The
 stepping wrapper also keeps the state that enters the chunks the check
-samples and the last chunk, and starts and stops the profiler's slice at
-record boundaries.
+samples and the chunk that ends at the call's ``max_steps``, counts the
+steps of every stepping call from that chunk to the end of the call, and
+starts and stops the profiler's slice at record boundaries.
 """
 from __future__ import annotations
 
@@ -84,7 +85,12 @@ class Hooks:
         chunks at ``capture_its`` are kept as copies taken as they enter
         (the program frees its states as it goes), and the state entering
         the chunk that ends at ``final_it`` as it is (the program holds it
-        through that chunk, so keeping it raises no peak)."""
+        through that chunk, so keeping it raises no peak).  ``last`` is
+        ``(it, state, n)``: the steps ``n`` from that state to the one the
+        call returns, that chunk's and those of every later stepping call
+        of the call (a driver whose loop runs to ``final_it`` inclusive
+        takes one more step, through which the kept state is one more than
+        the program holds)."""
         self.it = 0
         self.final_it = final_it
         self.spans = []          # (name, t0, t1) on the host clock
@@ -92,7 +98,7 @@ class Hooks:
         self.driver_t = None     # when the call built its Driver
         self.capture_its = set(capture_its)
         self.captured = {}       # it -> state entering the chunk
-        self.last = None         # (it, state, n) of the last chunk
+        self.last = None         # (it, state, n) from the final chunk on
         self.slice = slice_
 
     @contextlib.contextmanager
@@ -119,7 +125,10 @@ class Hooks:
             if self.slice is not None:
                 self.slice.at_step(self.it)
             state = tuple(args[:ns])
-            if self.it + n == self.final_it:
+            if self.last is not None:
+                it, kept, steps = self.last
+                self.last = (it, kept, steps + n)
+            elif self.it + n == self.final_it:
                 self.last = (self.it, state, n)
                 if self.it in self.capture_its:
                     self.captured[self.it] = state

@@ -4,6 +4,9 @@
 
 Run from the root of a checkout.  It needs a CUDA card (and as many as the
 workload asks for): without one it exits with code 3 and prints no result.
+Where the process holds JAX or the JAX package once the window has closed
+and the check has run, it exits with code 4, names them on standard error
+and prints no result.
 The last line of standard output is the result, one JSON object; the last
 lines of standard error are the numbers compared, each beside its limit.
 The program's own prints (the driver's MLUPS lines, nvcc's report) go to
@@ -57,7 +60,11 @@ def main(argv=None):
               file=sys.stderr)
         return 3
     print(f"card: {card_line()}", file=sys.stderr)
-    result = harness.run(spec, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+    try:
+        result = harness.run(spec, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+    except harness.ForeignModules as e:
+        print(f"benchmark: {e}; no result", file=sys.stderr)
+        return 4
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result))

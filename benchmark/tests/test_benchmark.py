@@ -5,10 +5,11 @@
 It rehearses every cell at a tiny lattice through the program's plain
 path and checks that a sound run comes out correct, that the control (the
 plain reference one precision below the cell's, in the program's place)
-and each fault a cell can have come out not correct, that the trace
-arithmetic reads a known trace right, that ``BENCHMARK.json`` keeps the
-benchmark contract's rules, and that the command refuses to run without a
-card.
+and each fault a cell can have (``faults.py``) come out not correct, that
+the trace arithmetic reads a known trace right, that ``BENCHMARK.json``
+keeps the benchmark contract's rules, that a run whose process holds JAX
+or the JAX package gives no result, and that the command refuses to run
+without a card.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from benchmark import harness, trace  # noqa: E402
+from faults import STEP_FAULTS, plant_half_lattice  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
@@ -52,59 +55,10 @@ def test_sound_run_is_correct_and_control_is_not(workload):
     assert list(r)[-1] == "checks"
 
 
-def _stale(orig):
-    """A step that returns its state unchanged."""
-    def run_fused(*args, **kw):
-        out = orig(*args, **kw)
-        return tuple(a.clone() for a in args[:len(out)]) if isinstance(out, tuple) \
-            else args[0].clone()
-    return run_fused
-
-
-def _half(orig):
-    """A step that advances only the lower half of the lattice's rows."""
-    def run_fused(*args, **kw):
-        out = orig(*args, **kw)
-        outs = out if isinstance(out, tuple) else (out,)
-        res = []
-        for new, old in zip(outs, args):
-            mixed = new.clone()
-            mixed[:, new.shape[1] // 2:] = old[:, new.shape[1] // 2:]
-            res.append(mixed)
-        return tuple(res) if isinstance(out, tuple) else res[0]
-    return run_fused
-
-
-def _altered(orig):
-    """One population of one cell altered where the step produces it."""
-    def run_fused(*args, **kw):
-        out = orig(*args, **kw)
-        outs = tuple(t.clone() for t in (out if isinstance(out, tuple) else (out,)))
-        outs[0][4, 1, 1] *= 1.1
-        return outs if isinstance(out, tuple) else outs[0]
-    return run_fused
-
-
-def _half_energy(orig):
-    """The kinetic energy's mean taken over half the lattice."""
-    def kinetic_energy(state, fluid, *a, **kw):
-        f = state[0] if isinstance(state, tuple) else state
-        ny = f.shape[1]
-        cut = (tuple(s[:, : ny // 2] for s in state) if isinstance(state, tuple)
-               else state[:, : ny // 2])
-        return orig(cut, fluid[: ny // 2], *a, **kw)
-    return kinetic_energy
-
-
 def _stepping(workload):
     spec = harness.Spec(ROOT, workload)
     mod, _, name = spec.config["stepping"].partition(":")
     return mod, name
-
-
-STEP_FAULTS = {"stale": _stale, "half": _half, "altered": _altered}
-MODELS = {"sc_droplet": "multiphase_lbm_tpu_torch.models.shan_chen",
-          "hcz_rti": "multiphase_lbm_tpu_torch.models.hcz"}
 
 
 @pytest.mark.parametrize("fault", sorted(STEP_FAULTS))
@@ -120,24 +74,65 @@ def test_step_fault_is_not_correct(workload, fault, monkeypatch):
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_half_lattice_diagnostics_is_not_correct(workload, monkeypatch):
-    import importlib
-    config = next(w["config"] for w in BENCH["workloads"] if w["name"] == workload)
-    module = importlib.import_module(MODELS[config])
-    monkeypatch.setattr(module, "kinetic_energy", _half_energy(module.kinetic_energy))
+    """Each diagnostic the configuration lists taken over half the lattice."""
+    plant_half_lattice(harness.Spec(ROOT, workload).config, monkeypatch)
     r = rehearse(workload)
     assert not r["correct"], r["checks"]
 
 
+def _dumping_workload():
+    """The first cell that holds its dumps to a ``vtk_mismatch`` limit."""
+    for name in WORKLOADS:
+        if "vtk_mismatch" in harness.Spec(ROOT, name).cell["limits"]:
+            return name
+    return None
+
+
 def test_altered_dump_is_not_correct(monkeypatch):
+    """The first float field of every dump ×1.00001 as the writer takes it."""
+    workload = _dumping_workload()
+    assert workload is not None, "no cell holds its dumps to a vtk_mismatch limit"
     from multiphase_lbm_tpu_torch.io import vtk
     orig = vtk.VtkWriter.scalar
 
     def scalar(self, name, data, as_int=False):
-        return orig(self, name, data * 1.00001 if name == "Density" else data, as_int)
+        if not as_int and not getattr(self, "_altered", False):
+            self._altered = True
+            data = data * 1.00001
+        return orig(self, name, data, as_int)
     monkeypatch.setattr(vtk.VtkWriter, "scalar", scalar)
-    r = rehearse("sc_droplet.n100.reference")
+    r = rehearse(workload)
     assert not r["correct"], r["checks"]
     assert r["checks"]["vtk_mismatch"]["value"] > r["checks"]["vtk_mismatch"]["limit"]
+
+
+@pytest.mark.parametrize("name", sorted(harness.FOREIGN))
+def test_foreign_module_in_the_timed_process_gives_no_result(name, monkeypatch):
+    """A stub under a JAX name, loaded by the stepping entry inside the
+    window: the run raises and no result comes back."""
+    import importlib
+    import types
+    mod, attr = _stepping(WORKLOADS[0])
+    module = importlib.import_module(mod)
+    orig = getattr(module, attr)
+
+    def run_fused(*args, **kw):
+        monkeypatch.setitem(sys.modules, name + ".stub", types.ModuleType(name + ".stub"))
+        return orig(*args, **kw)
+    monkeypatch.setattr(module, attr, run_fused)
+    result = None
+    with pytest.raises(harness.ForeignModules, match=re.escape(name)):
+        result = rehearse(WORKLOADS[0])
+    assert result is None
+
+
+def test_foreign_modules_compares_whole_top_level_names(monkeypatch):
+    import types
+    for name in ("jaxtyping", "flaxen.core", "multiphase_lbm_tpu_torch.stub"):
+        monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert harness.foreign_modules() == []
+    monkeypatch.setitem(sys.modules, "jaxlib", types.ModuleType("jaxlib"))
+    assert harness.foreign_modules() == ["jaxlib"]
 
 
 def test_trace_reduction_reads_a_known_trace():
