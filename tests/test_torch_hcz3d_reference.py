@@ -114,7 +114,8 @@ def test_driver_dumps_match_reference_vtk_tokens(tmp_path):
         state = REF.step(state, prm, prm["vtk_freq"])
 
 
-@pytest.mark.parametrize("name", ["sc_droplet_ref", "hcz_rti_ref", "hcz_droplet3d_ref"])
+@pytest.mark.parametrize("name", ["sc_droplet_ref", "hcz_rti_ref", "hcz_droplet3d_ref",
+                                  "fakhari_bubble_ref"])
 def test_reference_imports_neither_jax_nor_the_program(name):
     """Load the reference in a fresh interpreter in which importing JAX or
     either package raises, and list what it imported."""

@@ -1,8 +1,8 @@
 """The port's own spans and counters (``utils/profiling``): the recorder,
 the driver loop's spans and bytes read to the host, the kernel wrappers'
-launch counters, the 3D droplet's ``record.energy`` span, the operator's
-``--profile`` exporter and
-the benchmark's per-layer metrics that read them.
+launch counters, the 3D droplet's and the Fakhari bubble's ``record.energy``
+spans, the operator's ``--profile`` exporter and the benchmark's per-layer
+metrics that read them.
 
 The CPU tests run the plain path, which enqueues no kernel, so the
 ``kernel.*`` spans and launch counters are checked by the ``gpu`` tests
@@ -186,6 +186,40 @@ def test_laplace3d_record_energy_span_and_counter(device, tmp_path, request):
         len(records) if device == "cuda" else 0)
     launches = profiling.counter("kernel.launches.hcz3d_step")
     assert launches == (2 * 10 if device == "cuda" else 0)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_young_laplace2d_record_energy_span_and_counter(device, tmp_path, request):
+    """A traced ``run_young_laplace2d``: one ``record.energy`` span a record
+    (``family="fakhari"``), inside the record, holding both reads (energy
+    and mass).  Its loop runs to ``max_steps`` inclusive: 10 steps in
+    chunks of 4, 4 and 2, then one more step, four calls; on the card the
+    wrapper counts three ``fakhari_step`` launches a step and one a call,
+    and none on the CPU (the plain path)."""
+    if device == "cuda":
+        request.getfixturevalue("cuda_device")
+    torch.set_num_threads(1)
+    cfg = tmp_path / "yl.txt"
+    cfg.write_text("N 16\nout_freq 4\nvtk_freq 0\n")
+    run = lambda: apps.run_young_laplace2d(  # noqa: E731
+        str(cfg), str(tmp_path / "out"), dtype=torch.float32, max_steps=10,
+        device=device)
+    run()                                   # on the card: builds the library
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    spans = profiling.spans()
+    records = [s for s in spans if s.name == "record"]
+    energy = [s for s in spans if s.name == "record.energy"]
+    assert [s.attrs["it"] for s in records] == [0, 4, 8]
+    assert [s.parent for s in energy] == records
+    assert all(s.attrs == {"family": "fakhari"} for s in energy)
+    assert all(len([w for w in spans if w.name == "wait" and w.parent is s]) == 2
+               for s in energy)
+    assert profiling.counter("kernel.steps.fakhari_step") == (
+        11 if device == "cuda" else 0)
+    assert profiling.counter("kernel.launches.fakhari_step") == (
+        3 * 11 + 4 if device == "cuda" else 0)
 
 
 def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
