@@ -49,8 +49,8 @@ _SIGNATURES = {
     "hcz3d_step": [_VP] * 7 + [_I32] * 4 + [_VP, _VP],
     # f, g, phi, ws, out, nz, ny, nx, consts, stream
     "hcz3d_record": [_VP] * 5 + [_I32] * 3 + [_VP, _VP],
-    # h, g, u, ho, go, uo, phi, ny, nx, fresh_phi, consts, stream
-    "fakhari_step": [_VP] * 7 + [_I32, _I32, _I32, _VP, _VP],
+    # h, g, u, ho, go, uo, ny, nx, mode, consts, stream
+    "fakhari_step": [_VP] * 6 + [_I32] * 3 + [_VP, _VP],
     # f, out, psi, ny, nx, consts, stream
     "scrt_step": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
     # gc, gs, mac, yr, then gc, gs, mac, yr of buffer sets a and b, bz_idx,

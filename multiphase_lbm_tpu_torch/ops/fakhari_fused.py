@@ -6,12 +6,13 @@ The counterpart of ``multiphase_lbm_tpu/ops/pallas_fakhari.py``:
 ``step_fused_halo`` (``pallas_fakhari.py:354``), the halo-in entry of the
 lattice decomposition.  The lattice is periodic, as there: there is no
 geometry argument.  On a CUDA tensor both launch the hand-written kernel
-once per step (a collide-and-stream pass, a φ pass and a velocity pass,
-plus one φ pass at the start of each call; see the source's header note)
-or raise; they never substitute the plain path for a failed build or
-launch.  On a CPU tensor, and only there, they run the plain PyTorch
-version (:func:`..models.fakhari.run`, and :func:`step_halo_plain`), which
-is what the CPU tests exercise.
+once per step (a shared-memory tile that forms φ, does the previous step's
+velocity update, collides and streams), plus one velocity pass at the end
+of each call (see the source's header note), or raise; they never
+substitute the plain path for a failed build or launch.  On a CPU tensor,
+and only there, they run the plain PyTorch version
+(:func:`..models.fakhari.run`, and :func:`step_halo_plain`), which is what
+the CPU tests exercise.
 
 Each call counts its steps and launches in the recorder of
 :mod:`..utils.profiling` (``kernel.steps.fakhari_step``,
@@ -28,22 +29,29 @@ import torch
 from ..models import fakhari as fk
 from ..models.fakhari import FakhariParams
 from ..utils.profiling import span
-from . import _build, _halo
+from . import _build, _grid, _halo
 from ._checks import check_tensors, on_card
 
 FAMILY = "fakhari_step"
-# kernel launches a step (collide-and-stream, φ, velocity), and the φ pass
-# that opens each call
-LAUNCHES_PER_STEP = 3
+# kernel launches a step (the tile, which also does the previous step's
+# velocity update), and the velocity pass that ends each call
+LAUNCHES_PER_STEP = 1
 LAUNCHES_PER_CALL = 1
+# the kernel's block tile (TILE_Y, TILE_X in csrc/fakhari_step.cu), rows x
+# columns
+TILE = (8, 32)
+# the C entry's mode (FIRST, STEP, VELOCITY in the source): collide at the
+# input u; update u, then collide; update u only
+FIRST, STEP, VELOCITY = 0, 1, 2
 # rows of validity one step consumes: the collision reads ∇φ, ∇²φ and the
 # stress two rows away, the streaming one more, and the velocity update
 # after it ∇φ of the streamed φ two more (pallas_fakhari.py:63)
 REACH = 5
 # bytes and operations of one float32 step a cell (each input read once,
 # each output written once): h, g (2 × 9) and u (2) read and written, about
-# 750 operations (the fields, the stress and the force formed twice: before
-# the collision and after the streaming)
+# 750 operations (the fields once; the stress and the force twice: at the
+# stored u for the deferred velocity update, and at the updated u for the
+# collision)
 WORK_PER_CELL = (160, 750)
 
 
@@ -84,29 +92,43 @@ def run_fused(h, g, u, p: FakhariParams, n_steps: int):
 
 
 def _launch(h, g, u, p: FakhariParams, n_steps: int, halo_route: bool):
-    """``n_steps`` kernel steps on the CUDA tensors ``(h, g, u)``,
-    ping-ponging two new sets of buffers; counts them (``.halo`` for the
-    halo route)."""
+    """``n_steps`` kernel steps on the CUDA tensors ``(h, g, u)`` and the
+    velocity pass, ping-ponging two new sets of buffers; counts them
+    (``.halo`` for the halo route)."""
     with span("kernel.prepare", family=FAMILY, steps=n_steps):
+        _grid.launch_geometry(h.shape[1], h.shape[2], TILE)
         consts = kernel_constants(p)
-        _, ny, nx = h.shape
         bufs = tuple(tuple(torch.empty_like(t) for t in (h, g, u))
                      for _ in range(2))
-        phi = torch.empty((ny, nx), dtype=h.dtype, device=h.device)
-
-    def calls():
-        src = (h, g, u)
-        for i in range(n_steps):
-            dst = bufs[i % 2]
-            # after the first step, phi already holds Σh of src
-            yield (*(t.data_ptr() for t in src + dst), phi.data_ptr(), ny, nx,
-                   int(i > 0), ctypes.addressof(consts))
-            src = dst
-
     _build.enqueue(FAMILY, "fakhari_step", h, n_steps,
-                   n_steps * LAUNCHES_PER_STEP + LAUNCHES_PER_CALL, calls(),
-                   halo_route)
-    return bufs[(n_steps - 1) % 2]
+                   n_steps * LAUNCHES_PER_STEP + LAUNCHES_PER_CALL,
+                   step_calls((h, g, u), bufs, n_steps, consts), halo_route)
+    return result(bufs, n_steps)
+
+
+def step_calls(state, bufs, n_steps: int, consts: _FakhariConst):
+    """The C entry's arguments (the stream left out) for ``n_steps`` steps
+    of ``state`` into the two buffer triples ``bufs``: step ``i`` writes
+    ``bufs[i % 2]`` (mode FIRST, then STEP), and the velocity pass writes
+    the u of ``bufs[n_steps % 2]``.  A generator: each step's arguments
+    are formed as the caller's loop reaches it."""
+    ny, nx = state[0].shape[1:]
+    src = tuple(state)
+    for i in range(n_steps):
+        dst = bufs[i % 2]
+        yield (*(t.data_ptr() for t in src + dst), ny, nx,
+               STEP if i else FIRST, ctypes.addressof(consts))
+        src = dst
+    yield (*(t.data_ptr() for t in src), None, None,
+           bufs[n_steps % 2][2].data_ptr(), ny, nx, VELOCITY,
+           ctypes.addressof(consts))
+
+
+def result(bufs, n_steps: int):
+    """The state that :func:`step_calls` leaves in ``bufs``: the last
+    step's ``(h, g)`` and the velocity pass's u."""
+    out = bufs[(n_steps - 1) % 2]
+    return out[0], out[1], bufs[n_steps % 2][2]
 
 
 def step_halo_plain(h_ext, g_ext, u_ext, p: FakhariParams, nsub: int = 1,

@@ -9,8 +9,11 @@ where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_fakhari_fused_gpu.py
 
 Cases: the 128² bubble at the config's τ = 0.8 and at τ = 0.55, a
-non-square 96 × 160 lattice, and a random state away from the bubble's
-symmetry.  Tolerances: float32 over 5 steps rtol 5e-5, atol 5e-6 (those of
+non-square 96 × 160 lattice, a 50 × 70 lattice (neither side a multiple of
+the kernel's 32 × 8 tile), and a random state away from the bubble's
+symmetry.  k calls of one step must give the state of one call of k steps,
+and the halo entry on a slab the interior rows of the whole lattice's run,
+both bit for bit.  Tolerances: float32 over 5 steps rtol 5e-5, atol 5e-6 (those of
 tests/test_pallas_fakhari.py: summation order and FMA contraction differ
 from the plain path); float64 over 20 steps atol 1e-12, tight enough to
 separate an indexing fault from rounding.
@@ -52,7 +55,7 @@ def _state(case, dtype, device):
                         for a in (h, g, u))
     tau = 0.55 if case == "tau=0.55" else 0.8
     p = fk.FakhariParams(tau=tau)
-    nx, ny = (96, 160) if case == "96x160" else (128, 128)
+    nx, ny = {"96x160": (96, 160), "50x70": (50, 70)}.get(case, (128, 128))
     return p, fk.init_bubble(nx, ny, p, dtype=dtype, device=device)
 
 
@@ -62,7 +65,8 @@ def _assert_close(out, ref, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["tau=0.8", "tau=0.55", "96x160", "random"])
+@pytest.mark.parametrize("case", ["tau=0.8", "tau=0.55", "96x160", "50x70",
+                                  "random"])
 def test_fakhari_kernel_matches_plain(cuda_device, case, dtype):
     p, st = _state(case, dtype, cuda_device)
     n = STEPS[dtype]
@@ -71,6 +75,41 @@ def test_fakhari_kernel_matches_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert profiling.counter("kernel.steps.fakhari_step") == before + n
     _assert_close(out, fk.run(st, p, n), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_calls_of_one_step_equal_one_call(cuda_device, dtype):
+    """Five calls of one step give the state of one call of five steps,
+    bit for bit: a call defers each step's velocity update into the next
+    launch and ends with a velocity pass, so an update lost or done twice
+    at a call's boundary shows here."""
+    p, st = _state("random", dtype, cuda_device)
+    one = st
+    for _ in range(5):
+        one = fakhari_fused.run_fused(*one, p, 1)
+    whole = fakhari_fused.run_fused(*st, p, 5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, whole))
+
+
+@pytest.mark.parametrize("nsub", [1, 2])
+def test_halo_entry_matches_whole_lattice(cuda_device, nsub):
+    """``step_fused_halo`` on a slab of 16 interior rows with REACH · nsub
+    halo rows on each side gives those rows of ``run_fused`` on the whole
+    96 × 160 lattice, bit for bit (float32), and ``step_halo_plain``'s
+    within the float32 tolerance."""
+    p, st = _state("96x160", torch.float32, cuda_device)
+    H = fakhari_fused.REACH * nsub
+    y0, rows = 150, 16                   # the slab wraps past the last row
+    idx = torch.arange(y0 - H, y0 + rows + H, device=cuda_device) % 160
+    ext = tuple(t[:, idx].contiguous() for t in st)
+    out = fakhari_fused.step_fused_halo(*ext, p, nsub)
+    whole = fakhari_fused.run_fused(*st, p, nsub)
+    torch.cuda.synchronize()
+    interior = idx[H:H + rows]
+    assert all(torch.equal(a, b[:, interior]) for a, b in zip(out, whole))
+    _assert_close(out, fakhari_fused.step_halo_plain(*ext, p, nsub),
+                  TOL[torch.float32])
 
 
 def test_kernel_leaves_input_untouched(cuda_device):

@@ -194,8 +194,8 @@ def test_young_laplace2d_record_energy_span_and_counter(device, tmp_path, reques
     (``family="fakhari"``), inside the record, holding both reads (energy
     and mass).  Its loop runs to ``max_steps`` inclusive: 10 steps in
     chunks of 4, 4 and 2, then one more step, four calls; on the card the
-    wrapper counts three ``fakhari_step`` launches a step and one a call,
-    and none on the CPU (the plain path)."""
+    wrapper counts one ``fakhari_step`` launch a step and one velocity pass
+    a call, and none on the CPU (the plain path)."""
     if device == "cuda":
         request.getfixturevalue("cuda_device")
     torch.set_num_threads(1)
@@ -219,7 +219,7 @@ def test_young_laplace2d_record_energy_span_and_counter(device, tmp_path, reques
     assert profiling.counter("kernel.steps.fakhari_step") == (
         11 if device == "cuda" else 0)
     assert profiling.counter("kernel.launches.fakhari_step") == (
-        3 * 11 + 4 if device == "cuda" else 0)
+        1 * 11 + 4 if device == "cuda" else 0)
 
 
 def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
