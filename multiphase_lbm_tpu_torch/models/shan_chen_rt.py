@@ -157,18 +157,18 @@ def kinetic_energy(f, fluid, p: SCRTParams, lattice: Lattice = D2Q9):
 
 def interface_height(rho_host: np.ndarray, fluid_host: np.ndarray,
                      p: SCRTParams):
-    """Spike (heavy-finger lowest point, x=0 column) and bubble (light-finger
-    highest point, mid column) heights of the cos-perturbed interface, in
-    lattice units; host numpy in, floats out."""
-    ny, nx = rho_host.shape
+    """Spike and bubble rows of the record, in lattice units: the topmost
+    fluid row whose ρ is at most the mean of ρ_l and ρ_g, in the column
+    x = nx/2 (the spike) and x = 0 (the bubble), 0 where the column has
+    none; host numpy in, floats out.  This is the PF module's
+    findInterfaceHeights applied to ρ, as the C++ capture's spike and bubble
+    rows at steps 1000, 2000 and 3000 show (:mod:`..validation.scrt_reference`).
+    The JAX package's rule (the lowest heavy row of x = 0 and the highest
+    light row of x = nx/2) differs from them."""
     rho_cut = 0.5 * (p.rhol + p.rhog)
-    spike_col = 0          # interface trough is at x=0 (cos maximum)
-    bub_col = nx // 2      # crest at x=nx/2
-    ys = np.arange(ny)
-    fs = fluid_host[:, spike_col]
-    heavy_s = (rho_host[:, spike_col] > rho_cut) & fs
-    spike = float(ys[heavy_s].min()) if heavy_s.any() else float(ny)
-    fb = fluid_host[:, bub_col]
-    light_b = (rho_host[:, bub_col] <= rho_cut) & fb
-    bubble = float(ys[light_b].max()) if light_b.any() else 0.0
-    return spike, bubble
+
+    def top_light_row(x):
+        rows = np.nonzero((rho_host[:, x] <= rho_cut) & fluid_host[:, x])[0]
+        return float(rows[-1]) if rows.size else 0.0
+
+    return top_light_row(rho_host.shape[1] // 2), top_light_row(0)

@@ -384,12 +384,16 @@ def run_rayleigh_taylor_sc(config, outdir, dtype=torch.float64, max_steps=None,
                               int_scalars=[("Flag", flag)])
         if drv.want_out(it):
             with drv.record(it):
-                e = drv.scalar(rt.kinetic_energy(f, fluid, p)) * dx * dx / (dt * dt)
-                drv.log_file("energy.dat").log(it * dt, e)
-                rho = rt.density(f)
-                drv.log_file("mass.dat").log(
-                    it * dt, drv.scalar((rho * fluid).sum()))
-                s, bub = rt.interface_height(drv.numpy(rho), fluid_host, p)
+                # the plain energy and mass, each read as one scalar, then
+                # the whole ρ field copied to the host for two of its columns
+                with span("record.energy", family="scrt"):
+                    e = drv.scalar(rt.kinetic_energy(f, fluid, p))
+                    rho = rt.density(f)
+                    m = drv.scalar((rho * fluid).sum())
+                drv.log_file("energy.dat").log(it * dt, e * dx * dx / (dt * dt))
+                drv.log_file("mass.dat").log(it * dt, m)
+                with span("record.interface"):
+                    s, bub = rt.interface_height(drv.numpy(rho), fluid_host, p)
                 drv.log_file("spike_bubble_position.dat").log(
                     it * dt, s * dx, bub * dx)
         with drv.chunk(it):

@@ -115,7 +115,7 @@ def test_driver_dumps_match_reference_vtk_tokens(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["sc_droplet_ref", "hcz_rti_ref", "hcz_droplet3d_ref",
-                                  "fakhari_bubble_ref"])
+                                  "fakhari_bubble_ref", "sc_rti_ref"])
 def test_reference_imports_neither_jax_nor_the_program(name):
     """Load the reference in a fresh interpreter in which importing JAX or
     either package raises, and list what it imported."""

@@ -16,6 +16,7 @@ tests/test_torch_scrt_fused_gpu.py.
 import dataclasses
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from multiphase_lbm_tpu.io.config import lb_parameters
+from multiphase_lbm_tpu.models import hcz as jhcz
 from multiphase_lbm_tpu.models import shan_chen_rt as jrt
 from multiphase_lbm_tpu.ops import pallas_scrt
 from multiphase_lbm_tpu_torch.models import shan_chen_rt as trt
@@ -121,9 +123,14 @@ def test_diagnostics_match_jax():
     np.testing.assert_allclose(float(trt.kinetic_energy(tf, tfluid, tp)),
                                float(jrt.kinetic_energy(f, fluid, jp)),
                                rtol=1e-12)
+    # the record's spike and bubble rows: the JAX package's PF
+    # findInterfaceHeights applied to ρ, the rule the C++ capture's rows
+    # follow (tests/test_torch_scrt_reference.py); the JAX SC
+    # interface_height follows another
     rho = np.asarray(jrt.density(f))
+    cut = SimpleNamespace(phi_l=jp.rhol, phi_g=jp.rhog)
     assert (trt.interface_height(rho, np.asarray(fluid), tp)
-            == jrt.interface_height(rho, np.asarray(fluid), jp))
+            == jhcz.interface_heights(rho, cut))
     assert trt.RHO_FLOOR == jrt.RHO_FLOOR
     assert dataclasses.asdict(tp) == dataclasses.asdict(jp) and tp.tau == jp.tau
     with pytest.raises(TypeError):

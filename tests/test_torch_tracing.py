@@ -1,8 +1,9 @@
 """The port's own spans and counters (``utils/profiling``): the recorder,
 the driver loop's spans and bytes read to the host, the kernel wrappers'
-launch counters, the 3D droplet's and the Fakhari bubble's ``record.energy``
-spans, the operator's ``--profile`` exporter and the benchmark's per-layer
-metrics that read them.
+launch counters, the 3D droplet's, the Fakhari bubble's and the SC-RT
+channel's ``record.energy`` spans and the SC-RT ``record.interface`` span,
+the operator's ``--profile`` exporter and the benchmark's per-layer metrics
+that read them.
 
 The CPU tests run the plain path, which enqueues no kernel, so the
 ``kernel.*`` spans and launch counters are checked by the ``gpu`` tests
@@ -222,6 +223,45 @@ def test_young_laplace2d_record_energy_span_and_counter(device, tmp_path, reques
         1 * 11 + 4 if device == "cuda" else 0)
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_rayleigh_taylor_sc_record_spans_and_counter(device, tmp_path, request):
+    """A traced ``run_rayleigh_taylor_sc`` at 16 × 66 float32: inside each
+    record one ``record.energy`` span (``family="scrt"``) holding both
+    scalar reads (energy and mass), then one ``record.interface`` span
+    holding the copy of the whole ρ field, a ``wait`` of ny·nx·4 bytes.
+    10 steps in chunks of 4, 4 and 2; on the card the wrapper counts two
+    ``scrt_step`` launches a step (the ψ pass and the collide-and-stream),
+    and none on the CPU (the plain path)."""
+    if device == "cuda":
+        request.getfixturevalue("cuda_device")
+    torch.set_num_threads(1)
+    cfg = tmp_path / "rt.txt"
+    cfg.write_text("N 16\nRe 3.84\nout_freq 4\nvtk_freq 0\n")
+    run = lambda: apps.run_rayleigh_taylor_sc(  # noqa: E731
+        str(cfg), str(tmp_path / "out"), dtype=torch.float32, max_steps=10,
+        device=device)
+    run()                                   # on the card: builds the library
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    spans = profiling.spans()
+    records = [s for s in spans if s.name == "record"]
+    energy = [s for s in spans if s.name == "record.energy"]
+    interface = [s for s in spans if s.name == "record.interface"]
+    assert [s.attrs["it"] for s in records] == [0, 4, 8]
+    assert [s.parent for s in energy] == records == [s.parent for s in interface]
+    assert all(s.attrs == {"family": "scrt"} for s in energy)
+    assert all(e.t1 <= i.t0 for e, i in zip(energy, interface))
+
+    def waits(parent):
+        return [w.attrs["bytes"] for w in spans if w.name == "wait" and w.parent is parent]
+    assert all(waits(s) == [4, 4] for s in energy)
+    assert all(waits(s) == [66 * 16 * 4] for s in interface)
+    steps = profiling.counter("kernel.steps.scrt_step")
+    assert steps == (10 if device == "cuda" else 0)
+    assert profiling.counter("kernel.launches.scrt_step") == 2 * steps
+
+
 def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
     torch.set_num_threads(1)
     cfg = tmp_path / "sc.txt"
@@ -280,8 +320,10 @@ def _synthetic_run():
     """A traced slice from 10 s to 20 s of the driver's thread 1: records at
     11 s (waits ending 11.006 s, next enqueue 11.012 s), 12 s (2 ms
     exposed) and 13 s (no enqueue after it), one before and one after the
-    slice; 800 sc_step steps in 1.2 ms of wrapper spans, an hcz_step call
-    that is not the cell's family, and d2h_bytes of 67,125,264 B in it."""
+    slice; ``record.interface`` spans of 3 ms and 0.3 ms in the records at
+    11 s and 12 s, and one of 6 ms after the slice; 800 sc_step steps in
+    1.2 ms of wrapper spans, an hcz_step call that is not the cell's
+    family, and d2h_bytes of 67,125,264 B in it."""
     def s(name, t0, t1, thread=1, **attrs):
         return SimpleNamespace(name=name, t0=t0, t1=t1, thread=thread,
                                attrs=attrs, parent=None)
@@ -289,18 +331,21 @@ def _synthetic_run():
         s("record", 9.0, 9.01), s("wait", 9.001, 9.002),
         s("kernel.enqueue", 9.02, 9.03, family="sc_step", steps=400),
         s("record", 11.0, 11.010), s("wait", 11.001, 11.004),
-        s("wait", 11.005, 11.006), s("log", 11.007, 11.008),
+        s("wait", 11.005, 11.006), s("record.interface", 11.0061, 11.0091),
+        s("log", 11.0092, 11.0095),
         s("chunk", 11.010, 11.020),
         s("kernel.prepare", 11.011, 11.0115, family="sc_step", steps=400),
         s("kernel.enqueue", 11.012, 11.0121, family="sc_step", steps=400),
         s("vtk.write", 11.5, 11.9, thread=2),
         s("record", 12.0, 12.0025), s("wait", 12.001, 12.002),
+        s("record.interface", 12.0021, 12.0024),
         s("chunk", 12.0025, 12.006),
         s("kernel.prepare", 12.003, 12.0035, family="sc_step", steps=400),
         s("kernel.enqueue", 12.004, 12.0041, family="sc_step", steps=400),
         s("kernel.enqueue", 12.5, 12.6, family="hcz_step", steps=9),
         s("record", 13.0, 13.002), s("wait", 13.0, 13.001),
         s("record", 25.0, 25.01), s("wait", 25.001, 25.002),
+        s("record.interface", 25.003, 25.009),
         s("kernel.enqueue", 25.02, 25.03, family="sc_step", steps=400)]
     events = [(9.5, "d2h_bytes", 1000), (11.002, "d2h_bytes", 4),
               (11.0055, "d2h_bytes", 4), (11.5, "kernel.steps.sc_step", 400),
@@ -314,7 +359,7 @@ def _synthetic_run():
 
 @pytest.mark.parametrize("name,value", [
     ("record_exposed_ms", 4.0), ("wrapper_us_per_step", 1.5),
-    ("d2h_mb_per_record", 67.125264 / 3)])
+    ("d2h_mb_per_record", 67.125264 / 3), ("record_interface_ms", 1.65)])
 def test_metric_reads_a_synthetic_recorder(name, value):
     metric = _metric(name)
     assert metric.read(_synthetic_run()) == pytest.approx(value, rel=1e-9)
@@ -358,6 +403,32 @@ def test_roofline_of_the_3d_kernel_reads_its_bound():
     assert _metric("roofline_pct.hcz3d_step").read(run) == pytest.approx(
         100.0 * bound * 100 / 0.33, rel=1e-12)
     assert _metric("roofline_pct.hcz_step").read(run) is None
+
+
+def test_record_interface_ms_reads_nothing_without_the_span():
+    """A program that records no ``record.interface`` span (one that
+    predates it) gives no reading, and raises nothing."""
+    run = _synthetic_run()
+    spans = [x for x in run.recorder.spans() if x.name != "record.interface"]
+    older = SimpleNamespace(spans=lambda: spans, count_events=run.recorder.count_events)
+    assert _metric("record_interface_ms").read(
+        SimpleNamespace(**dict(vars(run), recorder=older))) is None
+
+
+def test_roofline_of_the_scrt_kernel_reads_its_bound():
+    """B4's share of its bound at 2048 × 8194 float32: 72 B a cell over
+    3.35 TB/s is 0.3608 ms a step, so 100 steps in 0.0725 s of ``step``
+    kernels read 49.8%; another family's cell reads nothing."""
+    bench_harness = importlib.import_module("benchmark.harness")
+    spec = bench_harness.Spec(ROOT, "sc_rti.n2048.out100")
+    nelem = 2048 * 8194
+    run = SimpleNamespace(spec=spec, dtype="float32", nelem=nelem,
+                          slice={"span_kernel_s": {"step": 0.0725}, "steps": 100})
+    bound = nelem * 72 / 3.35e12
+    value = _metric("roofline_pct.scrt_step").read(run)
+    assert value == pytest.approx(100.0 * bound * 100 / 0.0725, rel=1e-12)
+    assert 49.7 < value < 49.8
+    assert _metric("roofline_pct.fakhari_step").read(run) is None
 
 
 # ─── on the card ─────────────────────────────────────────────────────────
