@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                 together; prints the seconds and the ptxas report (registers
                 and spills of every kernel), and the registers and spills of
                 sc_step_kernel's four instantiations in float32 and float64
-                and of B5's and its record's kernels; B5's machine code
-                (cuobjdump -sass) must equal B5_SASS's digests where the
-                nvcc release is the one they were recorded with.
+                and of B5's, B4's and their records' kernels; B5's and B4's
+                machine code (cuobjdump -sass) must equal B5_SASS's and
+                B4_SASS's digests where the nvcc release is the one they
+                were recorded with.
   3. kernel vs plain on the card:
      sc_step — ω = 1.25 (τ = 0.8) so the rank-2 MRT term is live:
        {periodic 256², walled 256×128 with ρ_w = 0.2 and the droplet on the
@@ -98,7 +99,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      probe columns, steps 2000 and 3000 printed; coolbm RayleighTaylor2D_sc
      --f32 --steps 200 (config N = 128) writes sol_0000000.vtk,
      sol_0000100.vtk, energy.dat, mass.dat, spike_bubble_position.dat and
-     its MLUPS line.
+     its MLUPS line, with RECORD_LAUNCHES (2) scrt_record launches a line
+     of energy.dat.
+ 11b. SC-RT record — the record kernel (scrt_fused.record: B4's ψ pass and
+     the record pass) of the state the slope left, against the plain
+     record (kinetic_energy and Σρ over the fluid, rtol 1e-5; the spike and
+     bubble rows of interface_height equal, but where the plain ρ at the
+     row ties the cut within 4 ulp), two launches a record, and its time
+     (CUDA events over 100 calls) beside the plain record's (3 calls, the
+     ρ copy to the host included).
  12. pulsatile main path — bench --model pulsatile at N = 384 (3,821 × 384,
      wall compliance scaled to the size, 4N warm-up steps through
      pulsatile_step, slope 100/300; N >= 512 goes non-finite in the opening
@@ -225,6 +234,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 F32_TOL = dict(rtol=2e-5, atol=2e-6)
@@ -301,6 +311,10 @@ RECORD_WORK_PER_CELL = (72, 600)
 # 19 f in and φ out, then the record tile's 19 g and φ in, 160 B; about 200
 # operations (φ, ∇²φ, ∇∇²φ, Σ c g, F, u and |u|²)
 RECORD3D_WORK_PER_CELL = (160, 200)
+# The SC-RT record's work a cell in float32 (csrc/scrt_step.cu): the ψ
+# pass's 9 f in and ψ out, then the record pass's 9 f and ψ in, 80 B; about
+# 150 operations (ρ, ψ, u, F, |ua|², the sums)
+SCRT_RECORD_WORK_PER_CELL = (80, 150)
 
 # the kernel of csrc/sc_step.cu (B1)
 SC_KERNELS = ("sc_step_kernel",)
@@ -323,6 +337,24 @@ B5_SASS = {
         "36b7f72b5c7a4d0847d922e884e64850e017fda3cc23cee5596867d77d83a254",
     "tile_kernel<double>":
         "f764841993f21038ba03abbc45ee0f4d41363b260130d2ddd24e89f97cc90b44",
+}
+# the kernels of csrc/scrt_step.cu (B4), and its record kernel
+B4_KERNELS = ("psi_kernel", "collide_stream_kernel")
+B4_RECORD_KERNELS = ("scrt_record_kernel",)
+# SHA-256 of B4's machine code (sass_digests) as it stood before the record
+# kernel joined its source, built with the nvcc release named here: the
+# record and the helpers it shares with the step must leave B4's code as
+# it was.  A change to B4 itself records its own digests here.
+B4_SASS = {
+    "nvcc": "release 12.9, V12.9.86",
+    "psi_kernel<float>":
+        "369db3a19b5e57703166ec9c5fb9e2e8a7876b7b2a8a40bdd0c622822af8d797",
+    "psi_kernel<double>":
+        "408f35335708f91833490df6d903da33fbacacd9250d4c3c0902c1e408230dae",
+    "collide_stream_kernel<float>":
+        "ad70cad4f41dd8126286e097a30f448ce53e6b6bb2c8a27b600face9fc1614c8",
+    "collide_stream_kernel<double>":
+        "40a8e60875cd6d485f16af54e06a4ed51de1ac7516332a3d02df494240a24202",
 }
 # the kernels of csrc/pulsatile_step.cu (B6); the last one serves checks
 PB_KERNELS = ("links_kernel", "tile_kernel", "tail_kernel",
@@ -534,21 +566,29 @@ def main():
             _build.build_log, "hcz3d_step", B5_KERNELS + B5_RECORD_KERNELS):
         say(f"[build] {name} (hcz3d_step): {regs} registers, spill stores "
             f"{stores} B, spill loads {loads} B")
-    # B5's machine code against the digests recorded before the record
-    # kernel joined its source
+    for name, regs, stores, loads in ptxas_report(
+            _build.build_log, "scrt_step", B4_KERNELS + B4_RECORD_KERNELS):
+        say(f"[build] {name} (scrt_step): {regs} registers, spill stores "
+            f"{stores} B, spill loads {loads} B")
+    # B5's and B4's machine code against the digests recorded before their
+    # record kernels joined their sources
     release = nvcc_release()
-    b5_sass = sass_digests(_build.LIB_PATH, "hcz3d_step", B5_KERNELS)
-    say(f"[build] B5 SASS ({release}): " + ", ".join(
-        f"{k} {v[:16]}" for k, v in sorted(b5_sass.items())))
-    check(len(b5_sass) == 4, f"B5's four kernels not found: {sorted(b5_sass)}")
-    if release == B5_SASS["nvcc"]:
-        same = all(b5_sass[k] == B5_SASS[k] for k in b5_sass)
-        say(f"[build] B5 SASS {'unchanged' if same else 'CHANGED'} against "
-            "the digests recorded before the 3D record kernel")
-        check(same, "B5's machine code changed")
-    else:
-        say(f"[build] B5 SASS not compared: its digests were recorded with "
-            f"nvcc {B5_SASS['nvcc']}")
+    for label, source, kernels, recorded in (
+            ("B5", "hcz3d_step", B5_KERNELS, B5_SASS),
+            ("B4", "scrt_step", B4_KERNELS, B4_SASS)):
+        digests = sass_digests(_build.LIB_PATH, source, kernels)
+        say(f"[build] {label} SASS ({release}): " + ", ".join(
+            f"{k} {v[:16]}" for k, v in sorted(digests.items())))
+        check(len(digests) == 4,
+              f"{label}'s four kernels not found: {sorted(digests)}")
+        if release == recorded["nvcc"]:
+            same = all(digests[k] == recorded[k] for k in digests)
+            say(f"[build] {label} SASS {'unchanged' if same else 'CHANGED'} "
+                "against the digests recorded before its record kernel")
+            check(same, f"{label}'s machine code changed")
+        else:
+            say(f"[build] {label} SASS not compared: its digests were "
+                f"recorded with nvcc {recorded['nvcc']}")
 
     # ---- 3. kernels against their plain versions ----
     failures = []
@@ -1173,7 +1213,51 @@ def main():
     say(f"[main path] kernel {rec_rt['value']:.1f} MLUPS vs plain "
         f"{rec_rt_plain['value']:.1f} MLUPS at SC-RT {n}x{4 * n + 2} float32 "
         f"on {card}")
-    del rd, f0
+
+    # ---- 11b. SC-RT record: the kernel against the plain record ----
+    p_rt = rt.SCRTParams()          # the bench's parameters
+    fluid_rt = rt.geometry_channel(n, 4 * n + 2, device=dev)
+    fluid_rt_host = fluid_rt.cpu().numpy()
+
+    def scrt_record_kernel():
+        return scrt_fused.record(rd.out, fluid_rt, p_rt)
+
+    def scrt_record_plain():
+        rho = rt.density(rd.out)
+        e = float(rt.kinetic_energy(rd.out, fluid_rt, p_rt))
+        m = float((rho * fluid_rt).sum())
+        rho_host = rho.cpu().numpy()
+        return e, m, rt.interface_height(rho_host, fluid_rt_host, p_rt), rho_host
+
+    launches_before = profiling.counter("kernel.launches.scrt_record")
+    got = scrt_record_kernel().cpu()
+    check(profiling.counter("kernel.launches.scrt_record") - launches_before
+          == scrt_fused.RECORD_LAUNCHES, "the SC-RT record is not two launches")
+    e_p, m_p, rows_p, rho_host = scrt_record_plain()
+    err_scrt_rec = max(abs(got[0].item() - e_p), abs(got[1].item() - m_p))
+    rows_k = (got[2].item(), got[3].item())
+    say(f"[kernel vs plain] scrt_record SC-RT {n}x{4 * n + 2} float32: energy "
+        f"{got[0].item():.9e} vs {e_p:.9e}, mass {got[1].item():.9e} vs "
+        f"{m_p:.9e} (rtol 1e-5), spike/bubble {rows_k} vs {rows_p}")
+    check(e_p > 0.0 and abs(got[0].item() - e_p) <= 1e-5 * e_p
+          and abs(got[1].item() - m_p) <= 1e-5 * m_p,
+          f"SC-RT record {got.tolist()} vs plain {e_p}, {m_p}")
+    # density sums in another order than the kernel: a row may differ only
+    # where the plain ρ at it ties the cut to rounding
+    cut = rho_host.dtype.type(0.5 * (p_rt.rhol + p_rt.rhog))
+    for x, a, b in zip((n // 2, 0), rows_k, rows_p):
+        tie = abs(rho_host[int(max(a, b)), x] - cut) <= 4 * np.spacing(cut)
+        check(a == b or tie, f"SC-RT record row {a} vs plain {b} at x = {x}")
+    ms_scrt_rec = event_ms(scrt_record_kernel, 100)
+    ms_scrt_rec_plain = event_ms(scrt_record_plain, 3)
+    per_scrt_record = tuple(n * (4 * n + 2) * v
+                            for v in SCRT_RECORD_WORK_PER_CELL)
+    bound_scrt_rec, _ = bound(per_scrt_record)
+    say(f"[main path] scrt_record SC-RT {n}x{4 * n + 2} float32: kernel "
+        f"{ms_scrt_rec:.4f} ms a record ({100 * bound_scrt_rec / ms_scrt_rec:.1f}"
+        f"% of its {bound_scrt_rec:.4f} ms bound) vs plain "
+        f"{ms_scrt_rec_plain:.2f} ms, on {card}")
+    del rd, f0, got, rho_host
     rows = scrt_reference.compare(device=dev)
     for step, row in rows.items():
         gated = step in scrt_reference.GATED_STEPS
@@ -1187,12 +1271,23 @@ def main():
                   and row["colmid"] < scrt_reference.ATOL,
                   f"SC-RT departs from the C++ capture at step {step}: {row}")
     before_cli = _steps(scrt_fused)
-    run_cli(coolbm, ["RayleighTaylor2D_sc", "--f32", "--steps", "200"],
-            ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat", "mass.dat",
-             "spike_bubble_position.dat"))
+    scrt_record_before = profiling.counter("kernel.launches.scrt_record")
+    with tempfile.TemporaryDirectory() as rt_out:
+        run_cli(coolbm, ["RayleighTaylor2D_sc", "--f32", "--steps", "200"],
+                ("sol_0000000.vtk", "sol_0000100.vtk", "energy.dat",
+                 "mass.dat", "spike_bubble_position.dat"), outdir=rt_out)
+        with open(os.path.join(rt_out, "energy.dat")) as fh:
+            n_records_rt = len(fh.read().splitlines())
     check(_steps(scrt_fused) > before_cli,
           "the RayleighTaylor2D_sc CLI did not launch the kernel")
     scrt_launches = _steps(scrt_fused)
+    scrt_record_launches = (profiling.counter("kernel.launches.scrt_record")
+                            - scrt_record_before)
+    say(f"[cli] RayleighTaylor2D_sc: {scrt_record_launches} scrt_record "
+        f"launches for {n_records_rt} records")
+    check(scrt_record_launches == scrt_fused.RECORD_LAUNCHES * n_records_rt > 0,
+          "the RayleighTaylor2D_sc CLI did not take each record from the "
+          "record kernel")
 
     # ---- 13. combustion (before phase 12's worker window) ----
     t13 = time.perf_counter()
@@ -1620,6 +1715,13 @@ def main():
               "multiphase_lbm_tpu/ops/pallas_scrt.py:61", scrt_launches,
               err_scrt, rec_rt, rec_rt_plain,
               per_cell(scrt_fused, n * (4 * n + 2))),
+        # the record kernel (and the ψ pass) in place of kinetic_energy,
+        # the mass and interface_height of ρ copied to the host
+        entry("scrt_record", "scrt_step.cu",
+              "multiphase_lbm_tpu/models/shan_chen_rt.py:136",
+              scrt_record_launches, err_scrt_rec,
+              {"ms_per_step": ms_scrt_rec},
+              {"ms_per_step": ms_scrt_rec_plain}, per_scrt_record),
         entry("pulsatile_step", "pulsatile_step.cu",
               "multiphase_lbm_tpu/ops/pallas_pulsatile_full.py:87",
               pulsatile_launches, err_pulsatile, *recs_pl[384],

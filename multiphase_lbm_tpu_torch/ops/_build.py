@@ -53,6 +53,8 @@ _SIGNATURES = {
     "fakhari_step": [_VP] * 6 + [_I32] * 3 + [_VP, _VP],
     # f, out, psi, ny, nx, consts, stream
     "scrt_step": [_VP, _VP, _VP, _I32, _I32, _VP, _VP],
+    # f, psi, ws, out, ny, nx, consts, rho_cut, stream
+    "scrt_record": [_VP] * 4 + [_I32] * 2 + [_VP, ctypes.c_double, _VP],
     # gc, gs, mac, yr, then gc, gs, mac, yr of buffer sets a and b, bz_idx,
     # bz_val, rs_idx, rs_val, ctr, ny, nx, cap, n_steps, t0, consts, stream
     "pulsatile_run": [_VP] * 17 + [_I32] * 5 + [_VP, _VP],

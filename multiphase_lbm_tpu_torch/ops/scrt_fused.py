@@ -20,6 +20,13 @@ Each call counts its steps and launches in the recorder of
 ``kernel.launches.scrt_step``; ``.halo`` after them for
 :func:`step_fused_halo`), so a run can show that its main path went through
 the kernel, and records the ``kernel.prepare`` and ``kernel.enqueue`` spans.
+
+:func:`record` is the driver's energy, mass and spike/bubble record of a
+state (:func:`..models.shan_chen_rt.kinetic_energy`, Σρ over the fluid and
+:func:`..models.shan_chen_rt.interface_height`) from the same source's
+record kernel, B4's ψ pass and one record pass that leave four numbers on
+the card; it counts as the family ``scrt_record`` (one step and two
+launches a record).
 """
 from __future__ import annotations
 
@@ -31,9 +38,10 @@ from ..models import shan_chen_rt as rt
 from ..models.shan_chen_rt import SCRTParams
 from ..utils.profiling import span
 from . import _build, _halo
-from ._checks import check_tensors, on_card
+from ._checks import check_mask, check_tensors, on_card
 
 FAMILY = "scrt_step"
+RECORD_FAMILY = "scrt_record"
 # kernel launches a step: the ψ pass and the collide-and-stream pass
 LAUNCHES_PER_STEP = 2
 # columns of validity one step consumes: the force reads ψ one column away
@@ -43,6 +51,10 @@ REACH = 2
 # each output written once): 9 populations read and written (the walls
 # follow from the row index), about 300 operations
 WORK_PER_CELL = (72, 300)
+# kernel launches a record: the ψ pass and the record pass
+RECORD_LAUNCHES = 2
+# the record pass's largest grid (RECORD_BLOCKS in csrc/scrt_step.cu)
+RECORD_BLOCKS = 2048
 
 
 class _SCRTConst(ctypes.Structure):
@@ -129,3 +141,41 @@ def step_fused_halo(f_ext, p: SCRTParams, nsub: int = 1, halo=None):
     if not on_card(f_ext):
         return step_halo_plain(f_ext, p, nsub, halo)
     return _halo.interior(_launch(f_ext, p, nsub, halo_route=True), halo, 2)
+
+
+def record(f, fluid, p: SCRTParams):
+    """The record of the channel state ``f``: a float64 tensor
+    ``[E, M, spike, bubble]`` on its device.
+
+    ``E`` is :func:`..models.shan_chen_rt.kinetic_energy` (½ Σ|u + F/(2ρ)|²
+    over the fluid over ``fluid.numel()``), ``M`` the sum of ρ over the
+    fluid, and ``spike, bubble`` are
+    :func:`..models.shan_chen_rt.interface_height`: the largest y in
+    [1, ny − 2] with ρ ≤ (ρ_l + ρ_g)/2 at x = nx/2 and at x = 0, or 0.
+    ``fluid`` is the channel's ``(ny, nx)`` bool mask
+    (:func:`..models.shan_chen_rt.geometry_channel`); the kernel, like the
+    step, takes the walls from the row index.  On a CUDA tensor one C call
+    of two launches (its sums in double, in a fixed order), or raise; on a
+    CPU tensor, and only there, the plain functions' values.  Nothing is
+    read to the host here.
+    """
+    check_state(f)
+    check_mask(fluid, f, "fluid", dtype=torch.bool)
+    _, ny, nx = f.shape
+    if not on_card(f):
+        rho = rt.density(f)
+        e = float(rt.kinetic_energy(f, fluid, p))
+        m = float((rho * fluid).sum())
+        rows = rt.interface_height(rho.numpy(), fluid.numpy(), p)
+        return torch.tensor([e, m, *rows], dtype=torch.float64)
+    with span("kernel.prepare", family=RECORD_FAMILY, steps=1):
+        consts = kernel_constants(p)
+        psi = torch.empty((ny, nx), dtype=f.dtype, device=f.device)
+        ws = torch.empty(3 * RECORD_BLOCKS + 1, dtype=torch.float64,
+                         device=f.device)
+        out = torch.empty(4, dtype=torch.float64, device=f.device)
+    _build.enqueue(RECORD_FAMILY, "scrt_record", f, 1, RECORD_LAUNCHES,
+                   [(f.data_ptr(), psi.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), ny, nx, ctypes.addressof(consts),
+                     0.5 * (p.rhol + p.rhog))])
+    return out

@@ -123,6 +123,9 @@ ENTRIES = {
         _z(9, 12, 8, dev=dev), SCRTParams(), n),
     "scrt_fused.step_fused_halo": lambda dev, n: scrt_fused.step_fused_halo(
         _z(9, 12, 8, dev=dev), SCRTParams(), n),
+    "scrt_fused.record": lambda dev, n: scrt_fused.record(
+        _z(9, 12, 8, dev=dev), _z(12, 8, dev=dev, dtype=torch.bool),
+        SCRTParams()),
     "pulsatile_fused.run_fused_full":
         lambda dev, n: pulsatile_fused.run_fused_full(
             _pulsatile_state(dev), 0, _PB, n),
@@ -136,7 +139,7 @@ ENTRIES = {
 }
 # the entries without a step count
 NO_STEPS = {"hcz_fused.record_2d", "hcz3d_fused.record_3d",
-            "pulsatile_fused.fresh_map"}
+            "scrt_fused.record", "pulsatile_fused.fresh_map"}
 
 
 @pytest.mark.parametrize("entry", list(ENTRIES))

@@ -193,6 +193,59 @@ def test_kernel_constants_follow_the_source_struct():
     assert (c.neg_g, c.src_fac, c.one_minus_omega) == (4.0, 0.375, -0.25)
 
 
+# ─── the record entry on the CPU ───────────────────────────────────────────
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("omega", [1.0, 1.25])
+def test_record_cpu_is_the_plain_record(omega, dtype):
+    """On a CPU tensor ``record`` gives exactly the plain functions the
+    driver called before the kernel: ``kinetic_energy``, Σρ over the fluid
+    and ``interface_height`` (spike at nx/2, bubble at 0), as float64,
+    leaving the state as it was."""
+    _, tp, _, _, tf, tfluid = _case(omega, dtype, steps=12)
+    before = tf.clone()
+    rho = trt.density(tf)
+    want = [float(trt.kinetic_energy(tf, tfluid, tp)),
+            float((rho * tfluid).sum()),
+            *trt.interface_height(rho.numpy(), tfluid.numpy(), tp)]
+    rec = scrt_fused.record(tf, tfluid, tp)
+    assert rec.dtype == torch.float64 and rec.shape == (4,)
+    assert rec.tolist() == want
+    assert 0 < want[2] < NY - 1 and 0 < want[3] < NY - 1
+    assert torch.equal(tf, before)
+
+
+def test_record_entries_mirror_the_kernel_source():
+    """The record entries take the state, ψ scratch, workspace and output,
+    then ny and nx, the constants and the cut where the wrapper passes them
+    (``tests/test_torch_ops.py`` holds their argument types to the
+    signatures)."""
+    src = (Path(scrt_fused.__file__).parents[1] / "csrc"
+           / "scrt_step.cu").read_text()
+    for name in ("scrt_record_f32", "scrt_record_f64"):
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1)
+        assert [a.split()[-1].lstrip("*") for a in params.split(",")] == [
+            "f", "psi", "ws", "out", "ny", "nx", "consts", "rho_cut",
+            "stream"]
+    assert re.search(r"constexpr int RECORD_BLOCKS = (\d+);", src).group(1) \
+        == str(scrt_fused.RECORD_BLOCKS)
+
+
+@pytest.mark.parametrize("f_shape,mask_shape,mask_dtype,err", [
+    ((9, 10, 6), (10, 7), torch.bool, ValueError),     # mask of another shape
+    ((9, 10, 6), (6, 10), torch.bool, ValueError),     # mask transposed
+    ((9, 10, 6), (10, 6), torch.float32, TypeError),   # not a bool mask
+    ((9, 4, 10, 6), (10, 6), torch.bool, ValueError),  # a 3D state
+    ((9, 4, 10, 6), (4, 10, 6), torch.bool, ValueError),
+    ((9, 2, 6), (2, 6), torch.bool, ValueError),       # no fluid row
+])
+def test_record_refuses_bad_mask_and_state(f_shape, mask_shape, mask_dtype,
+                                           err):
+    with pytest.raises(err):
+        scrt_fused.record(torch.zeros(f_shape), torch.ones(mask_shape,
+                                                           dtype=mask_dtype),
+                          trt.SCRTParams())
+
+
 # ─── physics on the port's plain path (tests/test_sc_variants.py) ──────────
 def test_mass_conserved_and_walls_stay_zero():
     """100 steps of the 24 × 98 channel at the config physics, float64: mass

@@ -226,12 +226,14 @@ def test_young_laplace2d_record_energy_span_and_counter(device, tmp_path, reques
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
 def test_rayleigh_taylor_sc_record_spans_and_counter(device, tmp_path, request):
     """A traced ``run_rayleigh_taylor_sc`` at 16 × 66 float32: inside each
-    record one ``record.energy`` span (``family="scrt"``) holding both
-    scalar reads (energy and mass), then one ``record.interface`` span
-    holding the copy of the whole ρ field, a ``wait`` of ny·nx·4 bytes.
-    10 steps in chunks of 4, 4 and 2; on the card the wrapper counts two
-    ``scrt_step`` launches a step (the ψ pass and the collide-and-stream),
-    and none on the CPU (the plain path)."""
+    record one ``record.energy`` span (``family="scrt"``) holding the one
+    read of the record's four doubles (energy, mass and the two rows: a
+    ``wait`` of 32 bytes), then one ``record.interface`` span, which takes
+    the rows from that host copy and reads nothing more.  10 steps in
+    chunks of 4, 4 and 2; on the card the wrappers count two
+    ``scrt_step`` launches a step (the ψ pass and the collide-and-stream)
+    and two ``scrt_record`` launches a record (the ψ pass and the record
+    pass), and none of either on the CPU (the plain path)."""
     if device == "cuda":
         request.getfixturevalue("cuda_device")
     torch.set_num_threads(1)
@@ -255,11 +257,14 @@ def test_rayleigh_taylor_sc_record_spans_and_counter(device, tmp_path, request):
 
     def waits(parent):
         return [w.attrs["bytes"] for w in spans if w.name == "wait" and w.parent is parent]
-    assert all(waits(s) == [4, 4] for s in energy)
-    assert all(waits(s) == [66 * 16 * 4] for s in interface)
+    assert all(waits(s) == [32] for s in energy)
+    assert all(waits(s) == [] for s in interface)
     steps = profiling.counter("kernel.steps.scrt_step")
     assert steps == (10 if device == "cuda" else 0)
     assert profiling.counter("kernel.launches.scrt_step") == 2 * steps
+    recs = profiling.counter("kernel.steps.scrt_record")
+    assert recs == (len(records) if device == "cuda" else 0)
+    assert profiling.counter("kernel.launches.scrt_record") == 2 * recs
 
 
 def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
