@@ -554,7 +554,9 @@ def main():
     # ---- 2. build ----
     _build.build()
     _build.load()
-    say(f"[build] {_build.LIB_PATH.name} in {_build.build_seconds or 0.0:.1f} s"
+    nvcc = [s.t1 - s.t0 for s in profiling.spans()
+            if s.name == "library.build" and s.attrs["lib"] == "kernels"]
+    say(f"[build] {_build.LIB_PATH.name} in {sum(nvcc):.1f} s"
         f" (0.0 = already current)")
     if _build.build_log:
         say(_build.build_log.strip())

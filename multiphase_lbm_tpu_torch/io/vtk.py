@@ -20,7 +20,9 @@ whatever its sign), an int as ``"%d"`` of its int64.
 :func:`load_formatter` builds the library with the host C compiler
 (``$CC``, else ``cc``; ``-O2 -shared -fPIC``) into the package's ``_build/``
 at a process's first dump, and again only when the source is newer; a build
-or load that fails raises ``RuntimeError`` with the compiler's message.
+or load that fails raises ``RuntimeError`` with the compiler's message.  The
+load is a ``library.load`` phase (``lib="vtkfmt"``), with ``library.build``
+inside it when the compiler runs (``utils/profiling.phase``).
 :meth:`VtkWriter.reference_dumps`, the numpy rendering the C formatter
 replaced, is the plain reference the tests hold it to.  Each block adds its
 count of formatted values (a vector's three a point) to the counter
@@ -38,7 +40,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from ..utils.profiling import count, span
+from ..utils.profiling import count, phase, span
 
 _SRC = Path(__file__).resolve().parent / "native" / "vtkfmt.c"
 LIB_PATH = Path(__file__).resolve().parents[1] / "_build" / "libvtkfmt.so"
@@ -64,7 +66,9 @@ def _build_formatter() -> Path:
     cmd = [os.environ.get("CC", "cc"), "-O2", "-shared", "-fPIC", str(_SRC),
            "-o", str(tmp)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        with phase("library.build", lib="vtkfmt"):
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise RuntimeError(f"the VTK formatter cannot be built: "
                            f"{' '.join(cmd)}: {e}") from e
@@ -83,22 +87,28 @@ def load_formatter() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            path = _build_formatter()
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise RuntimeError(
-                    f"the VTK formatter {path} cannot be loaded: {e}") from e
-            vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-            # values, [f64,] n, row_len (vectors: ncomp), out, cap
-            for name, args in (("vtk_format_float", [vp, ci, cl, cl, vp, cl]),
-                               ("vtk_format_int", [vp, cl, cl, vp, cl]),
-                               ("vtk_format_vector", [vp, ci, cl, cl, vp, cl])):
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = cl
-            _lib = lib
+            with phase("library.load", lib="vtkfmt"):
+                _lib = _load_formatter()
     return _lib
+
+
+def _load_formatter() -> ctypes.CDLL:
+    """Build if stale, load, and declare the entries' types."""
+    path = _build_formatter()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(
+            f"the VTK formatter {path} cannot be loaded: {e}") from e
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    # values, [f64,] n, row_len (vectors: ncomp), out, cap
+    for name, args in (("vtk_format_float", [vp, ci, cl, cl, vp, cl]),
+                       ("vtk_format_int", [vp, cl, cl, vp, cl]),
+                       ("vtk_format_vector", [vp, ci, cl, cl, vp, cl])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = cl
+    return lib
 
 
 def _block_bytes(kind: str, arr: np.ndarray, nx: int) -> int:

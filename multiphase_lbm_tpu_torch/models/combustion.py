@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.lattice import D2Q9_REST_FIRST
+from ..utils.profiling import upload
 
 LAT = D2Q9_REST_FIRST
 Q = 9
@@ -240,8 +241,9 @@ def initialize(p: CombustionParams, dtype=torch.float64, f_restart=None,
         gT = np.where((flags == OBSTACLE)[None], wk * T_solid, gT)
     z = np.zeros((Q, ny, nx))
     zq = np.zeros((ny, nx))
-    return CombustionState(*(torch.as_tensor(np.ascontiguousarray(a),
-                                             dtype=dtype, device=device)
+    npdtype = torch.empty((), dtype=dtype).numpy().dtype
+    return CombustionState(*(upload(np.ascontiguousarray(a, dtype=npdtype),
+                                    device)
                              for a in (f, gO2, gCO2, gT, z, z, z, z, zq)))
 
 

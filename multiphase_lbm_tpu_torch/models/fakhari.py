@@ -29,6 +29,7 @@ from ..core.collision import gamma_minus_w, lattice_tensors
 from ..core.lattice import D2Q9, Lattice
 from ..core.stencil import isotropic_gradient, lattice_laplacian
 from ..core.streaming import stream_periodic
+from ..utils.profiling import upload
 
 EPS_C = 1e-30   # reference epsC, Young_Laplace2D.h:100
 
@@ -194,8 +195,8 @@ def init_bubble(nx, ny, p: FakhariParams, radius=None, dtype=torch.float32,
     P0 = -(phi * p.sigma / radius) / ((rho + 1e-12) / 3.0)
     w = np.asarray(lattice.w)
     npdtype = torch.empty((), dtype=dtype).numpy().dtype
-    h = torch.from_numpy((phi[None] * w[:, None, None]).astype(npdtype)).to(device)
-    g = torch.from_numpy((P0[None] * w[:, None, None]).astype(npdtype)).to(device)
+    h = upload((phi[None] * w[:, None, None]).astype(npdtype), device)
+    g = upload((P0[None] * w[:, None, None]).astype(npdtype), device)
     u0 = torch.zeros((2, ny, nx), dtype=dtype, device=device)
     flds = derive_fields(h, g, p, lattice)
     u0 = velocity_update(g, u0, flds, p, lattice)

@@ -33,6 +33,7 @@ from ..core.collision import lattice_tensors
 from ..core.lattice import D2Q9, D3Q19, Lattice
 from ..core.stencil import grad_of_laplacian, isotropic_gradient
 from ..core.streaming import stream_bounce_back
+from ..utils.profiling import upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +187,7 @@ def run(state, fluid, p: HCZParams, n_steps: int, lattice: Lattice = D2Q9,
 # both packages start bit-identical.
 def _to_state(f, g, dtype, device):
     npdtype = torch.empty((), dtype=dtype).numpy().dtype
-    return (torch.from_numpy(f.astype(npdtype)).to(device),
-            torch.from_numpy(g.astype(npdtype)).to(device))
+    return upload(f.astype(npdtype), device), upload(g.astype(npdtype), device)
 
 
 def init_rayleigh_taylor(nx, ny, p: HCZParams, dtype=torch.float32, *, device,

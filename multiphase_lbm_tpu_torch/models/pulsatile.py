@@ -31,6 +31,7 @@ import torch
 from ..core.collision import (MRT_M_I, MRT_M_I_INV, MRT_M_K, MRT_M_K_INV,
                               bgk_collide, pressure_equilibrium)
 from ..core.lattice import D2Q9, EX_I, EY_I, JB_I, K_FROM_I
+from ..utils.profiling import upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -919,7 +920,7 @@ def initialize(p: PulsatileParams, dtype=torch.float64, *,
     npdt = _np_dtype(dtype)
 
     def dev(x):
-        return torch.from_numpy(np.asarray(x).astype(npdt)).to(device)
+        return upload(np.asarray(x).astype(npdt), device)
 
     ga = dev(g)
     return PulsatileState(
@@ -929,7 +930,7 @@ def initialize(p: PulsatileParams, dtype=torch.float64, *,
         g_stream=ga.clone(),
         yr1=dev(yr1), yr2=dev(yr2),
         P=dev(P * fluid), Ux=dev(Ux * fluid), Uy=dev(Uy * fluid),
-        F=dev(F), fluid=torch.from_numpy(fluid).to(device))
+        F=dev(F), fluid=upload(fluid, device))
 
 
 def initialize_rigid_channel(p: PulsatileParams, yr_bottom: float,

@@ -23,6 +23,7 @@ from ..core import eos
 from ..core.collision import bgk_collide, equilibrium, mrt_collide
 from ..core.lattice import D2Q9, Lattice
 from ..core.streaming import stream_bounce_back
+from ..utils.profiling import upload
 
 RHO_FLOOR = 1e-14  # matches max(density, 1e-14), reference laplace2D.h:159
 
@@ -194,8 +195,7 @@ def init_droplet(nx, ny, p: SCParams, radius=10.0, center=None,
     dy = Y - center[1]
     rho = np.where(dx * dx + dy * dy <= radius * radius, p.rhol, p.rhog)
     w = np.asarray(lattice.w)
-    f = (rho[None] * w[:, None, None]).astype(npdtype)
-    return torch.from_numpy(f).to(device)
+    return upload((rho[None] * w[:, None, None]).astype(npdtype), device)
 
 
 def geometry_periodic(nx, ny, *, device):
@@ -293,4 +293,5 @@ def init_layers(nx, ny, p: SCParams, h_lower=0.3, w_int=4, dtype=torch.float64,
     s_liq = np.clip(s_bottom + s_top, 0.0, 1.0)
     rho = s_liq * p.rhog + (1.0 - s_liq) * p.rhol
     w = np.asarray(lattice.w)
-    return torch.as_tensor(rho[None] * w[:, None, None], dtype=dtype, device=device)
+    npdtype = torch.empty((), dtype=dtype).numpy().dtype
+    return upload((rho[None] * w[:, None, None]).astype(npdtype), device)

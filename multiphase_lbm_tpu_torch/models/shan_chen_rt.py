@@ -24,6 +24,7 @@ from ..core import eos
 from ..core.collision import lattice_tensors
 from ..core.lattice import D2Q9, Lattice
 from ..core.streaming import stream_bounce_back
+from ..utils.profiling import upload
 
 RHO_FLOOR = 1e-14
 
@@ -130,7 +131,7 @@ def init_interface(nx, ny, p: SCRTParams, dtype=torch.float64, *, device,
            + 0.5 * (p.rhol - p.rhog) * np.tanh((Y - interface) / 5.0))
     w = np.asarray(lattice.w)
     npdtype = torch.empty((), dtype=dtype).numpy().dtype
-    return torch.from_numpy((rho[None] * w[:, None, None]).astype(npdtype)).to(device)
+    return upload((rho[None] * w[:, None, None]).astype(npdtype), device)
 
 
 def geometry_channel(nx, ny, *, device):

@@ -13,6 +13,9 @@ import every module of the package.
 :func:`enqueue` is the one way the kernel wrappers (``ops/*_fused.py``) call
 the library: the ``kernel.enqueue`` span, the tensor's device, the symbol
 of its dtype, the current stream, the error check and the launch counters.
+The library's load (``library.load``, with ``library.build`` inside it when
+nvcc runs) and each entry point's first C call in the process
+(``kernel.first``) are recorded as phases (``utils/profiling.phase``).
 """
 from __future__ import annotations
 
@@ -20,12 +23,11 @@ import ctypes
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-from ..utils.profiling import count_launches, span
+from ..utils.profiling import count_launches, phase, span
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -74,10 +76,11 @@ ENTRY_POINTS = {f"{stem}_{kind}": argtypes
 SOURCE_FLAGS = {"pulsatile_step": ["-fmad=false"]}
 
 _lib = None
-# nvcc's report of the last build (ptxas registers / spills per kernel)
-# and its wall time in seconds; None until this process has built
+# nvcc's report of the last build (ptxas registers / spills per kernel);
+# None until this process has built
 build_log = None
-build_seconds = None
+# the symbols (entry and dtype) this process has called once
+_called = set()
 
 
 def _nvcc() -> str:
@@ -119,8 +122,9 @@ def _run_all(cmds):
 
 
 def build() -> Path:
-    """Compile the library if it is missing or older than a source."""
-    global build_log, build_seconds
+    """Compile the library if it is missing or older than a source, inside
+    a ``library.build`` phase."""
+    global build_log
     if not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,34 +132,36 @@ def build() -> Path:
     tag = os.getpid()
     objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in sources()]
     tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}.tmp"
-    t0 = time.perf_counter()
-    try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.stem, []),
-                         "-c", "-o", str(o), str(s)]
-                        for s, o in zip(sources(), objs)])
-        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
-        os.replace(tmp, LIB_PATH)
-    finally:
-        for o in objs:
-            o.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
+    with phase("library.build", lib="kernels"):
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.stem, []),
+                             "-c", "-o", str(o), str(s)]
+                            for s, o in zip(sources(), objs)])
+            log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+            os.replace(tmp, LIB_PATH)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     build_log = log
     return LIB_PATH
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with every C entry point's
-    argument and return types declared."""
+    argument and return types declared; the first call of a process runs
+    inside a ``library.load`` phase."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _I32
-    lib.sc_error_string.argtypes = [_I32]
-    lib.sc_error_string.restype = ctypes.c_char_p
+    with phase("library.load", lib="kernels"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I32
+        lib.sc_error_string.argtypes = [_I32]
+        lib.sc_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
@@ -177,15 +183,22 @@ def enqueue(family: str, entry: str, like: torch.Tensor, steps: int,
     after it for the halo-in entries; :func:`..utils.profiling.
     count_launches`).  ``calls`` may be a generator: a wrapper that loops
     its steps in Python forms each step's arguments as the loop reaches
-    it."""
+    it.  The process's first call of a symbol runs inside a
+    ``kernel.first`` phase (``family``, ``entry``: the symbol): the
+    library's runtime loads the kernel's module there."""
     with span("kernel.enqueue", family=family, steps=steps), \
             torch.cuda.device(like.device):
         lib = load()
-        fn = getattr(lib, entry + ("_f32" if like.dtype == torch.float32
-                                   else "_f64"))
+        symbol = entry + ("_f32" if like.dtype == torch.float32 else "_f64")
+        fn = getattr(lib, symbol)
         stream = torch.cuda.current_stream(like.device).cuda_stream
         for args in calls:
-            err = fn(*args, stream)
+            if symbol in _called:
+                err = fn(*args, stream)
+            else:
+                with phase("kernel.first", family=family, entry=symbol):
+                    err = fn(*args, stream)
+                _called.add(symbol)
             if err != 0:
                 raise RuntimeError(f"{entry} launch failed: "
                                    + lib.sc_error_string(err).decode())

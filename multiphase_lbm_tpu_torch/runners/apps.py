@@ -23,6 +23,7 @@ element count match the JAX CLI without ``--fused``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -38,7 +39,7 @@ from ..models import pulsatile as pb
 from ..models import shan_chen_rt as rt
 from ..ops import (combustion_fused, fakhari_fused, hcz3d_fused, hcz_fused,
                    pulsatile_fused, sc_fused, scrt_fused)
-from ..utils.profiling import span
+from ..utils.profiling import device_context, phase, span
 from .common import Driver, next_chunk
 
 
@@ -48,6 +49,18 @@ def _num(cfg, key, default):
 
 def _int(cfg, key, default):
     return int(float(cfg.get(key, default)))
+
+
+@contextlib.contextmanager
+def _init(device, driver):
+    """The ``init`` phase of a driver call (``utils/profiling.phase``), from
+    its entry to the line before its ``Driver``: the case file, parameters,
+    geometry and initial state, with the port's first CUDA context made
+    first.  Yields the phase's attributes, where the driver puts its
+    ``cells``."""
+    with phase("init", driver=driver) as init:
+        device_context(device)
+        yield init.attrs
 
 
 def _omega(cfg, N):
@@ -66,20 +79,24 @@ def _omega(cfg, N):
 # ─── Shan-Chen Laplace droplet (reference laplace2D.h driver :405-512) ─────
 def run_sc_laplace2d(config, outdir, dtype=torch.float64, max_steps=None, *,
                      device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 100)
-    omega, dx, dt = _omega(cfg, N)
-    p = sc.SCParams(
-        omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
-        R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.875),
-        rhol=_num(cfg, "rhol", 1.0), rhog=_num(cfg, "rhog", 0.1),
-        rho_w=_num(cfg, "rho_w", 0.12), gravity=_num(cfg, "gravity", 0.0))
-    # reference laplace2D.h:137 hardcodes Rdrop=10; honor an RR config key
-    # when present (the contactAngle2D family reads it) with that default
-    f = sc.init_droplet(N, N, p, radius=_num(cfg, "RR", 10.0), dtype=dtype,
-                        device=device)
-    fluid = sc.geometry_periodic(N, N, device=device)
-    steps = max_steps or int(_num(cfg, "max_t", 10.0) / dt)
+    with _init(device, "run_sc_laplace2d") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 100)
+        omega, dx, dt = _omega(cfg, N)
+        p = sc.SCParams(
+            omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
+            R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.875),
+            rhol=_num(cfg, "rhol", 1.0), rhog=_num(cfg, "rhog", 0.1),
+            rho_w=_num(cfg, "rho_w", 0.12),
+            gravity=_num(cfg, "gravity", 0.0))
+        # reference laplace2D.h:137 hardcodes Rdrop=10; honor an RR config
+        # key when present (the contactAngle2D family reads it) with that
+        # default
+        f = sc.init_droplet(N, N, p, radius=_num(cfg, "RR", 10.0),
+                            dtype=dtype, device=device)
+        fluid = sc.geometry_periodic(N, N, device=device)
+        steps = max_steps or int(_num(cfg, "max_t", 10.0) / dt)
+        init["cells"] = N * N
     return _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact=False,
                    periodic=True)
 
@@ -87,22 +104,24 @@ def run_sc_laplace2d(config, outdir, dtype=torch.float64, max_steps=None, *,
 # ─── Shan-Chen contact angle (reference contactAngle2D.h :644-807) ─────────
 def run_sc_contact_angle(config, outdir, dtype=torch.float64, max_steps=None,
                          *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 200)
-    omega, dx, dt = _omega(cfg, N)
-    p = sc.SCParams(
-        omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
-        R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.875),
-        rhol=_num(cfg, "rhol", 0.265), rhog=_num(cfg, "rhog", 0.038),
-        rho_w=_num(cfg, "rhow", _num(cfg, "rho_w", 0.2)),
-        gravity=_num(cfg, "gravity", 0.0))
-    nx, ny = 2 * N, N
-    RR = _num(cfg, "RR", 100.0)
-    f = sc.init_droplet(nx, ny, p, radius=RR, center=(nx // 2, 5.0),
-                        dtype=dtype, device=device)
-    fluid = sc.geometry_channel_walls(nx, ny, device=device)
-    f = sc.apply_geometry(f, fluid)
-    steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
+    with _init(device, "run_sc_contact_angle") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 200)
+        omega, dx, dt = _omega(cfg, N)
+        p = sc.SCParams(
+            omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
+            R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.875),
+            rhol=_num(cfg, "rhol", 0.265), rhog=_num(cfg, "rhog", 0.038),
+            rho_w=_num(cfg, "rhow", _num(cfg, "rho_w", 0.2)),
+            gravity=_num(cfg, "gravity", 0.0))
+        nx, ny = 2 * N, N
+        RR = _num(cfg, "RR", 100.0)
+        f = sc.init_droplet(nx, ny, p, radius=RR, center=(nx // 2, 5.0),
+                            dtype=dtype, device=device)
+        fluid = sc.geometry_channel_walls(nx, ny, device=device)
+        f = sc.apply_geometry(f, fluid)
+        steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
+        init["cells"] = nx * ny
     return _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact=True,
                    periodic=False)
 
@@ -110,22 +129,25 @@ def run_sc_contact_angle(config, outdir, dtype=torch.float64, max_steps=None,
 # ─── Shan-Chen layered flow (reference SC twoLayeredFlow2D.h :457-598) ─────
 def run_sc_two_layered(config, outdir, dtype=torch.float64, max_steps=None,
                        *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 100)
-    omega, dx, dt = _omega(cfg, N)
-    p0 = sc.SCParams(
-        omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
-        R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.95),
-        rhol=_num(cfg, "rhol", 0.21), rhog=_num(cfg, "rhog", 0.067),
-        rho_w=_num(cfg, "rho_w", 0.067), psi_mode="const_g",
-        G=_num(cfg, "G", -1.0), gx_u=_num(cfg, "gx", 1e-8),
-        gy_u=_num(cfg, "gy", 0.0))
-    p = dataclasses.replace(p0, p_shift=sc.compute_p_shift(p0))
-    f = sc.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
-                       w_int=_int(cfg, "w_int", 4), dtype=dtype, device=device)
-    fluid = sc.geometry_channel_walls(N, N, device=device)
-    f = sc.apply_geometry(f, fluid)
-    steps = max_steps or int(_num(cfg, "max_t", 200.0) / dt)
+    with _init(device, "run_sc_two_layered") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 100)
+        omega, dx, dt = _omega(cfg, N)
+        p0 = sc.SCParams(
+            omega=omega, a=_num(cfg, "a", 1.0), b=_num(cfg, "b", 4.0),
+            R=_num(cfg, "R", 1.0), TT0=_num(cfg, "TT0", 0.95),
+            rhol=_num(cfg, "rhol", 0.21), rhog=_num(cfg, "rhog", 0.067),
+            rho_w=_num(cfg, "rho_w", 0.067), psi_mode="const_g",
+            G=_num(cfg, "G", -1.0), gx_u=_num(cfg, "gx", 1e-8),
+            gy_u=_num(cfg, "gy", 0.0))
+        p = dataclasses.replace(p0, p_shift=sc.compute_p_shift(p0))
+        f = sc.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
+                           w_int=_int(cfg, "w_int", 4), dtype=dtype,
+                           device=device)
+        fluid = sc.geometry_channel_walls(N, N, device=device)
+        f = sc.apply_geometry(f, fluid)
+        steps = max_steps or int(_num(cfg, "max_t", 200.0) / dt)
+        init["cells"] = N * N
     return _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact=False,
                    periodic=False)
 
@@ -172,14 +194,16 @@ def _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact, periodic):
 # ─── Fakhari Young-Laplace (reference Young_Laplace2D.h :456-568) ──────────
 def run_young_laplace2d(config, outdir, dtype=torch.float64, max_steps=None,
                         *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 128)
-    p = fk.FakhariParams(
-        sigma=_num(cfg, "Sigma", 0.01), W=_num(cfg, "W", 4.0),
-        M=_num(cfg, "M", 0.02), rhol=_num(cfg, "RhoL", 0.001),
-        rhoh=_num(cfg, "RhoH", 1.0), tau=_num(cfg, "tau", 0.8))
-    state = fk.init_bubble(N, N, p, dtype=dtype, device=device)
-    steps = max_steps or _int(cfg, "tf", 10000)
+    with _init(device, "run_young_laplace2d") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 128)
+        p = fk.FakhariParams(
+            sigma=_num(cfg, "Sigma", 0.01), W=_num(cfg, "W", 4.0),
+            M=_num(cfg, "M", 0.02), rhol=_num(cfg, "RhoL", 0.001),
+            rhoh=_num(cfg, "RhoH", 1.0), tau=_num(cfg, "tau", 0.8))
+        state = fk.init_bubble(N, N, p, dtype=dtype, device=device)
+        steps = max_steps or _int(cfg, "tf", 10000)
+        init["cells"] = N * N
     drv = Driver(outdir, N * N, out_freq=_int(cfg, "out_freq", 1000),
                  vtk_freq=_int(cfg, "vtk_freq", 1000))
     flag = np.zeros((N, N), int)
@@ -226,16 +250,20 @@ def _flag(drv, fluid):
 # ─── HCZ Rayleigh-Taylor (reference PF rayleighTaylor2D.h :862-988) ────────
 def run_rayleigh_taylor_pf(config, outdir, dtype=torch.float64, max_steps=None,
                            *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 256)
-    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
-                                      _num(cfg, "Re", 3000.0))
-    p = _hcz_params(cfg, omega, 0.01, gravity=_num(cfg, "gravity", -6.25e-6))
-    ny = 4 * N + 2
-    fluid = hcz.geometry_channel(N, ny, device=device)
-    state = hcz.apply_geometry(
-        hcz.init_rayleigh_taylor(N, ny, p, dtype=dtype, device=device), fluid)
-    steps = max_steps or int(_num(cfg, "max_t", 5.01) / dt)
+    with _init(device, "run_rayleigh_taylor_pf") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 256)
+        nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
+                                          _num(cfg, "Re", 3000.0))
+        p = _hcz_params(cfg, omega, 0.01,
+                        gravity=_num(cfg, "gravity", -6.25e-6))
+        ny = 4 * N + 2
+        fluid = hcz.geometry_channel(N, ny, device=device)
+        state = hcz.apply_geometry(
+            hcz.init_rayleigh_taylor(N, ny, p, dtype=dtype, device=device),
+            fluid)
+        steps = max_steps or int(_num(cfg, "max_t", 5.01) / dt)
+        init["cells"] = N * ny
     drv = Driver(outdir, N * ny, out_freq=_int(cfg, "out_freq", 3200),
                  vtk_freq=_int(cfg, "vtk_freq", 3200))
     fluid_f32 = fluid.to(torch.float32)
@@ -281,17 +309,19 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=torch.float64, max_steps=None,
 # ─── HCZ layered channel (reference PF twoLayeredFlow2D.h :762-905) ────────
 def run_two_layered_pf(config, outdir, dtype=torch.float64, max_steps=None,
                        *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 100)
-    omega, dx, dt = _omega(cfg, N)
-    p = _hcz_params(cfg, omega, 0.001, gx=_num(cfg, "gx", 0.0),
-                    Gx_const=_num(cfg, "Gx_const", 1e-8))
-    fluid = hcz.geometry_channel(N, N, device=device)
-    state = hcz.apply_geometry(
-        hcz.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
-                        w_int=_int(cfg, "w_int", 2), dtype=dtype,
-                        device=device), fluid)
-    steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
+    with _init(device, "run_two_layered_pf") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 100)
+        omega, dx, dt = _omega(cfg, N)
+        p = _hcz_params(cfg, omega, 0.001, gx=_num(cfg, "gx", 0.0),
+                        Gx_const=_num(cfg, "Gx_const", 1e-8))
+        fluid = hcz.geometry_channel(N, N, device=device)
+        state = hcz.apply_geometry(
+            hcz.init_layers(N, N, p, h_lower=_num(cfg, "h_lower", 0.3),
+                            w_int=_int(cfg, "w_int", 2), dtype=dtype,
+                            device=device), fluid)
+        steps = max_steps or int(_num(cfg, "max_t", 50.0) / dt)
+        init["cells"] = N * N
     drv = Driver(outdir, N * N, out_freq=_int(cfg, "out_freq", 500),
                  vtk_freq=_int(cfg, "vtk_freq", 1000))
     fluid_f32 = fluid.to(torch.float32)
@@ -326,13 +356,15 @@ def run_two_layered_pf(config, outdir, dtype=torch.float64, max_steps=None,
 # ─── HCZ 3D droplet (reference laplace3D.h :853-952) ───────────────────────
 def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
                   device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 100)
-    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.01), N,
-                                      _num(cfg, "Re", 6.0))
-    p = _hcz_params(cfg, omega, 5e-4, gravity=_num(cfg, "gravity", 0.0))
-    state = hcz.init_droplet_3d(N, N, N, p, dtype=dtype, device=device)
-    steps = max_steps or int(_num(cfg, "max_t", 5.0) / dt)
+    with _init(device, "run_laplace3d") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 100)
+        nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.01), N,
+                                          _num(cfg, "Re", 6.0))
+        p = _hcz_params(cfg, omega, 5e-4, gravity=_num(cfg, "gravity", 0.0))
+        state = hcz.init_droplet_3d(N, N, N, p, dtype=dtype, device=device)
+        steps = max_steps or int(_num(cfg, "max_t", 5.0) / dt)
+        init["cells"] = N ** 3
     drv = Driver(outdir, N ** 3, out_freq=_int(cfg, "out_freq", 100),
                  vtk_freq=_int(cfg, "vtk_freq", 100))
     it = 0
@@ -360,17 +392,22 @@ def run_laplace3d(config, outdir, dtype=torch.float64, max_steps=None, *,
 # ─── SC Rayleigh-Taylor (reference SC RayleighTaylor2D.h :578-670) ─────────
 def run_rayleigh_taylor_sc(config, outdir, dtype=torch.float64, max_steps=None,
                            *, device):
-    cfg = load_config(config)
-    N = _int(cfg, "N", 128)
-    nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
-                                      _num(cfg, "Re", 30.72))
-    p = rt.SCRTParams(
-        omega=omega, rhol=_num(cfg, "rhol", 1.2), rhog=_num(cfg, "rhog", 0.4),
-        g=_num(cfg, "g", -5.0), gravity=_num(cfg, "gravity", -1.25e-5))
-    nx, ny = N, 4 * N + 2     # reference dim {N, 4N+2} (RayleighTaylor2D.h:622)
-    fluid = rt.geometry_channel(nx, ny, device=device)
-    f = rt.init_interface(nx, ny, p, dtype=dtype, device=device) * fluid[None]
-    steps = max_steps or int(_num(cfg, "max_t", 50.01) / dt)
+    with _init(device, "run_rayleigh_taylor_sc") as init:
+        cfg = load_config(config)
+        N = _int(cfg, "N", 128)
+        nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
+                                          _num(cfg, "Re", 30.72))
+        p = rt.SCRTParams(
+            omega=omega, rhol=_num(cfg, "rhol", 1.2),
+            rhog=_num(cfg, "rhog", 0.4), g=_num(cfg, "g", -5.0),
+            gravity=_num(cfg, "gravity", -1.25e-5))
+        # reference dim {N, 4N+2} (RayleighTaylor2D.h:622)
+        nx, ny = N, 4 * N + 2
+        fluid = rt.geometry_channel(nx, ny, device=device)
+        f = rt.init_interface(nx, ny, p, dtype=dtype,
+                              device=device) * fluid[None]
+        steps = max_steps or int(_num(cfg, "max_t", 50.01) / dt)
+        init["cells"] = nx * ny
     drv = Driver(outdir, nx * ny, out_freq=_int(cfg, "out_freq", 100),
                  vtk_freq=_int(cfg, "vtk_freq", 100))
     flag = _flag(drv, fluid)
@@ -411,11 +448,13 @@ def run_pulsatile(outdir, N=64, dtype=torch.float64, max_steps=None,
     parity mode advances through the kernel on a CUDA device; the
     quirk-free physics mode has no kernel (in the JAX package either) and
     runs the plain path, which it says on stdout when on the card."""
-    p = pb.PulsatileParams(nx=1 + 10 * (N - 2), ny=N,
-                           momentum_quirk=momentum_quirk)
-    state = pb.initialize(p, dtype, device=device)
-    tf = max_steps or (p.beat + 2 * p.t_propagation)
-    step_freq = max(1, tf // 100)
+    with _init(device, "run_pulsatile") as init:
+        p = pb.PulsatileParams(nx=1 + 10 * (N - 2), ny=N,
+                               momentum_quirk=momentum_quirk)
+        state = pb.initialize(p, dtype, device=device)
+        tf = max_steps or (p.beat + 2 * p.t_propagation)
+        step_freq = max(1, tf // 100)
+        init["cells"] = p.nx * p.ny
     drv = Driver(outdir, p.nx * p.ny, out_freq=step_freq, vtk_freq=step_freq)
     if not momentum_quirk and state.P.is_cuda:
         print("PulsatileBloodFlow2D --quirk-free: no kernel implements the "
@@ -496,15 +535,27 @@ def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
     ``u_lid``), couette (moving top wall, periodic x), poiseuille (body force
     ``dpdx``, periodic x), or the default reactive inflow/outflow channel,
     the only one with the Xu-2018 obstacles."""
-    # a lid speed exists only for the moving-wall topologies
-    if u_lid is None:
-        u_lid = 0.002 if topology in ("cavity", "couette") else 0.0
-    p = cb.CombustionParams(nx=nx, ny=ny, conj_scheme=conj_scheme,
-                            topology=topology, u_lid=u_lid, dpdx=dpdx,
-                            with_obstacles=(topology == "inflow_outflow"))
-    flags, _ = cb.build_geometry(p)
-    tab = cb.build_static_tables(flags, p)
-    runner = _combustion_runner(p)
+    with _init(device, "run_combustion") as init:
+        # a lid speed exists only for the moving-wall topologies
+        if u_lid is None:
+            u_lid = 0.002 if topology in ("cavity", "couette") else 0.0
+        p = cb.CombustionParams(nx=nx, ny=ny, conj_scheme=conj_scheme,
+                                topology=topology, u_lid=u_lid, dpdx=dpdx,
+                                with_obstacles=(topology == "inflow_outflow"))
+        flags, _ = cb.build_geometry(p)
+        tab = cb.build_static_tables(flags, p)
+        runner = _combustion_runner(p)
+        # bench mode starts at rest; a run may restart from a flow field
+        f0 = None
+        if restart is not None and not benchmark:
+            f0 = ckpt.load_flow_field_txt(restart)
+            if f0.shape != (9, ny, nx):
+                raise ValueError(
+                    f"restart field {f0.shape[1:]} does not match the "
+                    f"requested lattice ({ny}, {nx}); pass matching --ny/--nx")
+        st = cb.initialize(p, dtype, T_solid=T_solid, flags=flags,
+                           f_restart=f0, device=device)
+        init["cells"] = nx * ny
 
     def sync(st):
         if st.f.is_cuda:
@@ -512,8 +563,6 @@ def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
 
     if benchmark:
         import time
-        st = cb.initialize(p, dtype, T_solid=T_solid, flags=flags,
-                           device=device)
         st = runner(st, p, bench_ini_iter, konv=False)
         sync(st)
         n = bench_max_iter - bench_ini_iter
@@ -524,15 +573,6 @@ def run_combustion(outdir, nx=420, ny=80, dtype=torch.float64,
         print(f"MLUPS: {nx * ny * n / dt_s / 1e6:.1f}")
         return st
 
-    f0 = None
-    if restart is not None:
-        f0 = ckpt.load_flow_field_txt(restart)
-        if f0.shape != (9, ny, nx):
-            raise ValueError(
-                f"restart field {f0.shape[1:]} does not match the requested "
-                f"lattice ({ny}, {nx}); pass matching --ny/--nx")
-    st = cb.initialize(p, dtype, T_solid=T_solid, flags=flags, f_restart=f0,
-                       device=device)
     drv = Driver(outdir, nx * ny, out_freq=1000, vtk_freq=0)
 
     def log(done, e, dev):

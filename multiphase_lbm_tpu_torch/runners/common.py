@@ -11,7 +11,7 @@ import torch
 
 from ..io.loggers import DatLogger, MlupsClock
 from ..io.vtk import VtkWriter, sol_filename
-from ..utils.profiling import carry, count, span, to_host, tracing
+from ..utils.profiling import carry, count, phase, span, to_host, tracing
 
 
 class _HostCopies:
@@ -72,8 +72,9 @@ class Driver:
     changed by later steps.  Output is byte-identical to synchronous
     writes (``async_io=False``).
 
-    While ``torch.profiler`` records, a ``driver`` span runs from the
-    construction until :meth:`finish` has drained the dumps, the loops of
+    A ``driver`` phase (``utils/profiling.phase``: recorded with or without
+    the profiler) runs from the construction until :meth:`finish` has
+    drained the dumps.  While ``torch.profiler`` records, the loops of
     ``runners/apps.py`` mark each iteration with the spans of
     :meth:`record`, :meth:`dump` and :meth:`chunk` inside it, their
     blocking reads of device data with :meth:`scalar` and :meth:`numpy`
@@ -92,9 +93,9 @@ class Driver:
         self._pool = None
         self._writes = []
         self._io_err = None
-        # the driver call's span, from here until finish() has drained the
+        # the driver call's phase, from here until finish() has drained the
         # dumps: the loop's own code between its record, dump and chunk spans
-        self._span = span("driver")
+        self._span = phase("driver")
         self._span.__enter__()
 
     def log_file(self, name) -> DatLogger:

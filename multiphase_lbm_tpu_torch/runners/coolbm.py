@@ -23,10 +23,14 @@ never hidden behind a CPU run.
 ``--profile PATH`` runs the problem under ``torch.profiler`` on every
 thread and writes its Chrome trace to PATH: the kernels, the program's
 ``mlbm.*`` spans of the driver and the VTK writer threads on one timeline,
-and the counters (``utils/profiling.profile_run``).  It prints the device's
-idle share between the loop's first kernel launch and its last chunk, the
-idle time by the innermost driver span at each idle gap's midpoint, and the
-longest gaps.
+and the counters (``utils/profiling.profile_run``).  It prints the set-up
+phases (``utils/profiling.PHASES``: the driver's ``init`` and its
+``init.upload`` copies, the card's ``device.context``, the kernel library's
+``library.load`` and ``library.build``, each entry's ``kernel.first`` call,
+and the ``driver`` call), each with its count and seconds, then the
+device's idle share between the loop's first kernel launch and its last
+chunk, the idle time by the innermost driver span at each idle gap's
+midpoint, and the longest gaps.
 """
 from __future__ import annotations
 
@@ -106,7 +110,10 @@ def main(argv=None):
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="write a torch.profiler Chrome trace of the run "
                          "(kernels, every thread's mlbm.* spans, counters) "
-                         "to PATH and print the device's idle time by span")
+                         "to PATH and print the set-up phases (init, "
+                         "init.upload, device.context, library.load, "
+                         "library.build, kernel.first, driver: count and "
+                         "seconds) and the device's idle time by span")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -147,9 +154,16 @@ def main(argv=None):
 
 def _profile(run, path):
     """``run()`` under :func:`..utils.profiling.profile_run`, then the
-    device's idle time by driver span on stdout."""
+    set-up phases and the device's idle time by driver span on stdout."""
     _, idle = profiling.profile_run(run, path)
     print(f"profile: trace written to {path}")
+    print("profile: phases (name, count, seconds):")
+    spans = profiling.spans()
+    for name in profiling.PHASES:
+        done = [s.t1 - s.t0 for s in spans
+                if s.name == name and s.t1 is not None]
+        if done:
+            print(f"profile:   {name} {len(done)} {sum(done):.6f}")
     if not idle:
         print("profile: no driver loop or no device operation in the trace")
         return

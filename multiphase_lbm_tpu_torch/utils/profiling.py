@@ -23,6 +23,15 @@ spans under :func:`carry` of the flag the task was submitted with, since
 the profiler's flag is local to a thread.  :func:`spans`, :func:`counters`,
 :func:`counter`, :func:`count_events` and :func:`reset` read and clear what
 was recorded; :func:`profile_run` is the operator's profile of a whole run.
+
+A :func:`phase` is a span that records whether or not the profiler runs,
+for work a driver call does a bounded number of times: the set-up a user
+waits through before the first step (:data:`PHASES`).  It keeps the same
+record on the same clock in the same list, and opens its
+``record_function`` only while :func:`tracing`.  :func:`upload` copies an
+initial state to its device inside an ``init.upload`` phase, and
+:func:`device_context` makes the port's first CUDA context inside a
+``device.context`` phase.
 """
 from __future__ import annotations
 
@@ -41,30 +50,52 @@ from torch.autograd import _profiler_enabled
 # the prefix of the program's ranges on the profiler's timeline
 PREFIX = "mlbm."
 
+# the phases the port records, where (see the module note):
+#   init (driver, cells)       a runners/apps.run_* from its entry to the
+#                              line before its Driver: case file, parameters,
+#                              geometry, initial state
+#   init.upload (bytes)        each host->device copy of an initial state
+#   device.context (device)    the process's first CUDA context, made by
+#                              the port where it first touches the card
+#   driver                     a Driver from its construction until finish()
+#                              has drained the dumps
+#   library.load (lib)         ops/_build.load, io/vtk.load_formatter: the
+#                              staleness check, CDLL and the argtypes
+#   library.build (lib)        inside library.load: nvcc or cc, only when
+#                              the library is stale
+#   kernel.first (family, entry)  ops/_build.enqueue: the first C call of an
+#                              entry point and dtype, the runtime's module load
+PHASES = ("init", "init.upload", "device.context", "driver", "library.load",
+          "library.build", "kernel.first")
+
 
 class Span:
     """One recorded span: ``t1`` is None while it is open; ``parent`` is the
     enclosing recorded span on the same thread, or None; ``thread`` the
-    native thread id (the profiler's ``tid``)."""
+    native thread id (the profiler's ``tid``).  ``ranged`` opens a
+    ``record_function`` range around it."""
     __slots__ = ("name", "parent", "thread", "t0", "t1", "attrs", "_range")
 
-    def __init__(self, name, attrs):
+    def __init__(self, name, attrs, ranged=True):
         self.name, self.attrs = name, attrs
-        self.parent = self.thread = self.t0 = self.t1 = self._range = None
+        self.parent = self.thread = self.t0 = self.t1 = None
+        self._range = (torch.profiler.record_function(PREFIX + name)
+                       if ranged else None)
 
     def __enter__(self):
         stack = _open_spans()
         self.parent = stack[-1] if stack else None
         stack.append(self)
         self.thread = threading.get_native_id()
-        self._range = torch.profiler.record_function(PREFIX + self.name)
         self.t0 = time.perf_counter()
-        self._range.__enter__()
+        if self._range is not None:
+            self._range.__enter__()
         _SPANS.append(self)
         return self
 
     def __exit__(self, *exc):
-        self._range.__exit__(*exc)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         self.t1 = time.perf_counter()
         stack = _open_spans()
         if self in stack:   # a span left open by an exception stays below
@@ -114,6 +145,39 @@ def span(name: str, **attrs):
     """A context manager around host work named ``name``; see the module
     note.  ``attrs`` (numbers or short strings) are kept with it."""
     return Span(name, attrs) if tracing() else _OFF
+
+
+def phase(name: str, **attrs):
+    """A span around set-up work named ``name`` that records with or
+    without the profiler, its ``record_function`` range only while
+    :func:`tracing`; see the module note and :data:`PHASES`."""
+    return Span(name, attrs, tracing())
+
+
+_context_made = False
+
+
+def device_context(device):
+    """Make ``device``'s CUDA context inside a ``device.context`` phase the
+    first time the port touches a card in this process: the runtime's
+    start and the context that the first allocation, copy or kernel would
+    otherwise pay for.  Nothing on the CPU, nor once it has run."""
+    global _context_made
+    device = torch.device(device)
+    if device.type != "cuda" or _context_made:
+        return
+    _context_made = True
+    with phase("device.context", device=str(device)):
+        torch.cuda.synchronize(device)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """``torch.from_numpy(a).to(device)``, the host→device copy of an
+    initial state, inside an ``init.upload`` phase with its ``bytes``; a
+    CPU device records alike (nothing is copied)."""
+    device_context(device)
+    with phase("init.upload", bytes=a.nbytes):
+        return torch.from_numpy(a).to(device)
 
 
 class carry:
@@ -188,7 +252,9 @@ def count_events() -> list:
 
 
 def reset():
-    """Forget the recorded spans, the counters and their events."""
+    """Forget the recorded spans (and those an exception left open on the
+    calling thread), the counters and their events."""
+    _open_spans().clear()
     with _LOCK:
         _SPANS.clear()
         _TOTALS.clear()

@@ -1,9 +1,9 @@
 """The port's own spans and counters (``utils/profiling``): the recorder,
-the driver loop's spans and bytes read to the host, the kernel wrappers'
-launch counters, the 3D droplet's, the Fakhari bubble's and the SC-RT
-channel's ``record.energy`` spans and the SC-RT ``record.interface`` span,
-the operator's ``--profile`` exporter and the benchmark's per-layer metrics
-that read them.
+the set-up phases, the driver loop's spans and bytes read to the host, the
+kernel wrappers' launch counters, the 3D droplet's, the Fakhari bubble's
+and the SC-RT channel's ``record.energy`` spans and the SC-RT
+``record.interface`` span, the operator's ``--profile`` exporter and the
+benchmark's per-layer metrics that read them.
 
 The CPU tests run the plain path, which enqueues no kernel, so the
 ``kernel.*`` spans and launch counters are checked by the ``gpu`` tests
@@ -15,10 +15,13 @@ import importlib
 import importlib.util
 import json
 import re
+import subprocess
+import sys
 import threading
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -46,6 +49,83 @@ def test_span_without_profiler_records_nothing(monkeypatch):
     assert profiling.spans() == [] and profiling.count_events() == []
     assert profiling.counters() == {"things": 5}
     assert profiling.counter("things") == 5 and profiling.counter("none") == 0
+
+
+def test_phase_records_without_profiler(monkeypatch, tmp_path):
+    """A phase records with no profiler and opens no ``record_function``
+    then (a span beside it records nothing); under the profiler it lands
+    on the Chrome trace as ``mlbm.<name>``.  ``upload`` copies inside an
+    ``init.upload`` phase with its bytes; ``device_context`` does nothing
+    on the CPU."""
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.reset()
+    a = np.arange(6.0).reshape(2, 3)
+    with profiling.phase("init", driver="d") as init:
+        profiling.device_context("cpu")
+        with profiling.span("record"):
+            t = profiling.upload(a, "cpu")
+    up, = [s for s in profiling.spans() if s is not init]
+    assert profiling.spans() == [init, up]
+    assert init.attrs == {"driver": "d"} and init.parent is None
+    assert up.name == "init.upload" and up.attrs == {"bytes": 48} and up.parent is init
+    assert init.t0 <= up.t0 <= up.t1 <= init.t1
+    assert up.thread == init.thread == threading.get_native_id()
+    assert torch.equal(t, torch.from_numpy(a))
+    monkeypatch.undo()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.phase("library.load", lib="kernels"):
+            pass
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    assert [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("name", "").startswith("mlbm.")] == ["mlbm.library.load"]
+    assert [s.name for s in profiling.spans()] == ["library.load"]
+
+
+def _phase_cases():
+    """The drivers the benchmark calls, at tiny lattices in float64 on the
+    CPU: (driver, case file, steps, cells, bytes its initial state
+    uploads)."""
+    return [
+        (apps.run_sc_laplace2d, "N 16\nRR 5\ntau 1.0\nout_freq 4\nvtk_freq 0\n",
+         8, 16 * 16, 9 * 16 * 16 * 8),
+        (apps.run_rayleigh_taylor_pf, "N 8\nRe 20\nout_freq 4\nvtk_freq 0\n",
+         8, 8 * 34, 2 * 9 * 8 * 34 * 8),
+        (apps.run_laplace3d, "N 8\nRe 0.9\nout_freq 4\nvtk_freq 0\n",
+         4, 8 ** 3, 2 * 19 * 8 ** 3 * 8),
+        (apps.run_young_laplace2d, "N 16\nout_freq 4\nvtk_freq 0\n",
+         8, 16 * 16, 2 * 9 * 16 * 16 * 8),
+        (apps.run_rayleigh_taylor_sc, "N 8\nRe 3.84\nout_freq 4\nvtk_freq 0\n",
+         8, 8 * 34, 9 * 8 * 34 * 8)]
+
+
+@pytest.mark.parametrize("case", _phase_cases(),
+                         ids=lambda c: c[0].__name__)
+def test_driver_call_records_init_then_driver(case, tmp_path):
+    """With no profiler, a driver call records one ``init`` phase (its
+    name and cells) holding every ``init.upload`` of its initial state,
+    then one ``driver`` phase; nothing else records on the CPU."""
+    torch.set_num_threads(1)
+    driver, text, steps, cells, nbytes = case
+    cfg = tmp_path / "case.txt"
+    cfg.write_text(text)
+    profiling.reset()
+    driver(str(cfg), str(tmp_path / "out"), max_steps=steps, device="cpu")
+    spans = profiling.spans()
+    main = threading.get_native_id()
+    top = [s for s in spans if s.parent is None]
+    assert [s.name for s in top] == ["init", "driver"]
+    init, drv = top
+    assert all(s.thread == main for s in spans)
+    assert init.attrs == {"driver": driver.__name__, "cells": cells}
+    assert init.t1 <= drv.t0 and drv.t1 is not None
+    uploads = [s for s in spans if s.name == "init.upload"]
+    assert uploads and all(s.parent is init for s in uploads)
+    assert sum(s.attrs["bytes"] for s in uploads) == nbytes
+    assert len(spans) == 2 + len(uploads)
 
 
 def test_spans_nest_and_reach_the_chrome_trace(tmp_path):
@@ -124,7 +204,8 @@ def test_driver_loop_spans_and_bytes_read(case, tmp_path):
         driver(str(cfg), str(tmp_path / "out"), max_steps=steps, device="cpu")
     spans = profiling.spans()
     main = threading.get_native_id()
-    driver_span, = [s for s in spans if s.thread == main and s.parent is None]
+    init_span, driver_span = [s for s in spans if s.thread == main and s.parent is None]
+    assert init_span.name == "init" and init_span.t1 <= driver_span.t0
     assert driver_span.name == "driver" and driver_span.t1 is not None
     top = [s for s in spans if s.parent is driver_span]
     # the RTI driver reads its Flag mask once, before the loop
@@ -286,7 +367,12 @@ def test_profile_flag_writes_both_threads_spans_and_counters(tmp_path, capsys):
     assert any({"mlbm.vtk.write", "mlbm.vtk.format", "mlbm.vtk.disk"} <= names
                for names in by_tid.values())
     assert trace["mlbm"]["counters"]["d2h_bytes"] == 2 * (16 + 4 * 16 * 16 * 8)
-    assert "profile: trace written to" in capsys.readouterr().out
+    assert {"mlbm.init", "mlbm.init.upload", "mlbm.driver"} <= by_tid[
+        next(e["tid"] for e in marks if e["name"] == "mlbm.chunk")]
+    out = capsys.readouterr().out
+    assert "profile: trace written to" in out
+    assert "profile:   init 1 " in out and "profile:   driver 1 " in out
+    assert "profile:   init.upload 1 " in out
 
 
 def test_idle_by_span_names_gaps_by_the_innermost_driver_span():
@@ -420,6 +506,59 @@ def test_record_interface_ms_reads_nothing_without_the_span():
         SimpleNamespace(**dict(vars(run), recorder=older))) is None
 
 
+def _phased_run():
+    """A benchmark process's phases from T_START = 0 s: the rehearsal call
+    (its ``init`` holding the card's context and an upload; its ``driver``
+    holding the library's load, nvcc inside it, and the first C call; the
+    VTK formatter's load on the writer thread), the warm-up call, then the
+    timed call, whose ``driver`` holds the slice (15 s to 17 s) and one
+    more first call; ``setup_s`` 9 s."""
+    def s(name, t0, t1, thread=1, parent=None, **attrs):
+        return SimpleNamespace(name=name, t0=t0, t1=t1, thread=thread,
+                               attrs=attrs, parent=parent)
+    init0 = s("init", 1.0, 1.5, driver="run_sc_laplace2d")
+    drv0 = s("driver", 1.6, 3.0)
+    load = s("library.load", 1.7, 2.2, parent=drv0, lib="kernels")
+    init1 = s("init", 4.0, 4.8)
+    drv1 = s("driver", 5.0, 7.0)
+    init2 = s("init", 8.0, 8.6)
+    drv2 = s("driver", 9.0, 30.0)
+    spans = [
+        init0, s("device.context", 1.0, 1.4, parent=init0),
+        s("init.upload", 1.4, 1.45, parent=init0, bytes=8), drv0, load,
+        s("library.build", 1.8, 2.0, parent=load, lib="kernels"),
+        s("kernel.first", 2.3, 2.4, parent=drv0, entry="sc_step_f64"),
+        s("library.load", 2.5, 2.6, thread=2, lib="vtkfmt"),
+        init1, s("init.upload", 4.5, 4.7, parent=init1, bytes=8), drv1,
+        s("kernel.first", 5.1, 5.15, parent=drv1, entry="sc_step_f32"),
+        s("record", 6.0, 6.1), init2, drv2,
+        s("record", 15.0, 15.1, parent=drv2),
+        s("kernel.first", 16.0, 16.01, parent=drv2, entry="hcz_step_f32"),
+        s("init", 31.0, None)]
+    recorder = SimpleNamespace(spans=lambda: spans, count_events=lambda: [])
+    return SimpleNamespace(recorder=recorder, slice_bounds=(15.0, 17.0),
+                           setup_s=9.0)
+
+
+@pytest.mark.parametrize("name,value", [
+    # the timed call's init, 8.0 to 8.6 s
+    ("init_state_s", 0.6),
+    # context 0.4, kernel library 0.5 less nvcc's 0.2, formatter 0.1, first
+    # calls 0.1 and 0.05; the first call inside the window left out
+    ("first_use_s", 0.4 + 0.3 + 0.1 + 0.15),
+    # 9 s less init 0.5, 0.8, 0.6 and driver 1.4, 2.0
+    ("setup_outside_s", 9.0 - 5.3)])
+def test_setup_metric_reads_the_phases(name, value):
+    """Each ``setup_s`` metric reads its share of a synthetic recorder's
+    phases, and nothing where the program records no phase (a recorder
+    of spans alone) or the run has no slice."""
+    metric = _metric(name)
+    run = _phased_run()
+    assert metric.read(run) == pytest.approx(value, rel=1e-12)
+    assert metric.read(SimpleNamespace(**dict(vars(run), slice_bounds=None))) is None
+    assert metric.read(SimpleNamespace(**dict(vars(_synthetic_run()), setup_s=9.0))) is None
+
+
 def test_roofline_of_the_scrt_kernel_reads_its_bound():
     """B4's share of its bound at 2048 × 8194 float32: 72 B a cell over
     3.35 TB/s is 0.3608 ms a step, so 100 steps in 0.0725 s of ``step``
@@ -491,3 +630,41 @@ def test_launch_counter_matches_profiled_kernels(cuda_device, tmp_path, family,
     assert len(rec) == (len(records) if family == "hcz_step" else 0)
     for r in (s for s in spans if s.name == "record"):
         assert any(s.name == "wait" and s.parent is r for s in spans)
+
+
+_ONCE_SCRIPT = """
+import json, sys, torch
+from multiphase_lbm_tpu_torch.runners import apps
+from multiphase_lbm_tpu_torch.utils import profiling
+for dtype in (torch.float32, torch.float32, torch.float64):
+    apps.run_sc_laplace2d(sys.argv[1], sys.argv[2], dtype=dtype, max_steps=8,
+                          device="cuda")
+print(json.dumps([[s.name, s.attrs, getattr(s.parent, "name", None)]
+                  for s in profiling.spans()]))
+"""
+
+
+@pytest.mark.gpu
+def test_library_load_once_and_kernel_first_once_per_entry(cuda_device, tmp_path):
+    """A fresh process on the card that runs the SC driver twice in float32
+    and once in float64, with no profiler: one ``device.context`` (inside
+    the first ``init``), one ``library.load`` of the kernels, one
+    ``kernel.first`` for each of ``sc_step_f32`` and ``sc_step_f64``
+    (inside the call's ``driver``), and an ``init`` and a ``driver`` a
+    call."""
+    cfg = tmp_path / "case.txt"
+    cfg.write_text("N 64\nRR 12\ntau 1.0\nout_freq 4\nvtk_freq 0\n")
+    out = subprocess.run([sys.executable, "-c", _ONCE_SCRIPT, str(cfg),
+                          str(tmp_path / "o")], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    phases = json.loads(out.stdout.strip().splitlines()[-1])
+    names = [n for n, _, _ in phases]
+    assert names.count("init") == names.count("driver") == 3
+    assert [p for n, _, p in phases if n == "device.context"] == ["init"]
+    loads = [a for n, a, _ in phases if n == "library.load"]
+    assert loads == [{"lib": "kernels"}]
+    first = [(a["entry"], a["family"], p) for n, a, p in phases
+             if n == "kernel.first"]
+    assert first == [("sc_step_f32", "sc_step", "driver"),
+                     ("sc_step_f64", "sc_step", "driver")]
